@@ -14,10 +14,19 @@ Phases, one line or block of output each; any failure exits non-zero:
      per-image moments, Poisson histograms, row structure, seeds, range,
      and both times (CUDA events);
   3. the slice: eld_tpu_torch.tools.train_syn.main over a PatchStore of 32
-     smooth 512x512x4 patches, --noise eld --include 4 -b 8 --bf16, 3
-     epochs = 12 optimizer steps through the kernel; then the U-Net on the
-     card against the same weights on the CPU, and step times with the
-     kernel and with the plain noise path;
+     smooth 512x512x4 patches, --noise eld --include 4 -b 8 --bf16 --scan 0
+     (the per-step loader), 3 epochs = 12 optimizer steps through the
+     kernel; then the U-Net on the card against the same weights on the
+     CPU, and step times with the kernel and with the plain noise path;
+  4. train_syn at its defaults: --scan left to auto (it must resolve to
+     10, the pooled trainer), 128 smooth patches held on the card, 2 epochs
+     of 16 steps (calls of 10 and 6) for unet and 1 epoch for unet_s2d, the
+     periodic SID eval on the indoor-15 ratio-100/300 names, and the pooled
+     per-step time beside phase 3b's;
+  5. the eval stack: the eval forward on the card against the CPU (pad and
+     chop, unet and unet_s2d), test_sid on the card against the CPU over
+     SID-geometry rawpacks, test_eld full-frame with --chop, and
+     full-frame eval-forward times;
 and prints the kernels' JSON line, the card line, and a last JSON line
 {"ok": true, "device": {...}}.  It imports nothing of JAX.
 """
@@ -269,7 +278,7 @@ def phase3(card):
         argv = ["--traindir", tmp, "--checkpoints_dir", os.path.join(tmp, "ck"),
                 "--name", "smoke", "--noise", "eld", "--include", "4", "-b", "8", "--bf16",
                 "--epochs", "3", "--no-log", "--no-verbose", "--seed", str(SEED),
-                "--nThreads", "4", "--device", "cuda"]
+                "--nThreads", "4", "--device", "cuda", "--scan", "0"]
         synthesize_kernel.launches = 0
         t0 = time.perf_counter()
         engine = train_syn.main(argv)
@@ -352,6 +361,234 @@ def phase3b(card):
         results[impl].append((time.perf_counter() - t0) / 10 * 1e3)
     print(f"[3b] train step ms (bf16, batch 8, 512^2, 10 steps each, plain/kernel/kernel/plain): "
           f"plain {results['plain']}, kernel {results['kernel']} on {card}", flush=True)
+    return results["kernel"]
+
+
+# ---- phase 4 ------------------------------------------------------------
+
+def _smooth_mosaic(shape, rng):
+    """A smooth uint16 scene in the 14-bit range above the black level."""
+    import numpy as np
+
+    yy, xx = np.meshgrid(np.linspace(0, 1, shape[0], dtype=np.float32),
+                         np.linspace(0, 1, shape[1], dtype=np.float32), indexing="ij")
+    img = 0.5 + 0.4 * np.sin(2 * np.pi * (rng.uniform(1, 3) * yy + rng.uniform(1, 3) * xx))
+    return (2048 + img * 14000).astype(np.uint16)
+
+
+def _write_sid_eval(root):
+    """The SID indoor-15 files of ratios 100 and 300, as DNG bytes under
+    their .ARW names (the native raw decoder reads the TIFF container
+    whatever the extension): one smooth 1024x1024 scene, its packed frame
+    just large enough for the protocol's 512 center crop."""
+    import numpy as np
+
+    from eld_tpu_torch.data.pairs import eval_pairs_by_ratio
+    from tests.tiff_fixture import make_dng
+
+    gt = _smooth_mosaic((1024, 1024), np.random.default_rng(SEED))
+    long_bytes = make_dng(gt, iso=100, exposure=10)
+    pairs = eval_pairs_by_ratio()
+    for ratio in (100, 300):
+        dark = (512 + (gt.astype(np.float32) - 512) / ratio).astype(np.uint16)
+        short_bytes = make_dng(dark, iso=100, exposure=10 / ratio)
+        for short, long_ in pairs[ratio]:
+            for sub, fn, data in (("short", short, short_bytes), ("long", long_, long_bytes)):
+                os.makedirs(os.path.join(root, sub), exist_ok=True)
+                with open(os.path.join(root, sub, fn), "wb") as f:
+                    f.write(data)
+    return root
+
+
+def phase4(card, tmp, step_ms):
+    """train_syn at its defaults (the pooled trainer) on unet and unet_s2d,
+    with the periodic eval; returns the engines and the kernel launches."""
+    import torch
+
+    from eld_tpu_torch.data import rawio
+    from eld_tpu_torch.data.loader import pool_to_device
+    from eld_tpu_torch.data.patchstore import PatchStore
+    from eld_tpu_torch.models import build_arch
+    from eld_tpu_torch.noise.kernels import synthesize_kernel
+    from eld_tpu_torch.tools import train_syn
+    from eld_tpu_torch.train.steps import fold_in, make_train_scan
+
+    check(rawio._load_native() is not None, "the native raw decoder (librawio.so) did not load")
+    traindir = os.path.join(tmp, "train")
+    os.makedirs(traindir)
+    _write_store(os.path.join(traindir, "SID_Sony_Raw.eps"), count=128)
+    evaldir = _write_sid_eval(os.path.join(tmp, "sid"))
+    pool = {"clean": pool_to_device(PatchStore(os.path.join(traindir, "SID_Sony_Raw.eps")),
+                                    "cuda")}
+    check(pool["clean"].dtype == torch.uint16, f"pool dtype {pool['clean'].dtype}")
+    print(f"[4] pool: {tuple(pool['clean'].shape)} uint16, "
+          f"{pool['clean'].numel() * 2 / 1e6:.1f} MB on the card", flush=True)
+
+    engines, launches_total = {}, 0
+    for arch, epochs in (("unet", 2), ("unet_s2d", 1)):
+        argv = ["--traindir", traindir, "--evaldir", evaldir,
+                "--checkpoints_dir", os.path.join(tmp, "ck"), "--name", arch, "--netG", arch,
+                "--noise", "eld", "--include", "4", "-b", "8", "--bf16",
+                "--epochs", str(epochs), "--eval_every", str(epochs), "--no-verbose",
+                "--seed", str(SEED), "--nThreads", "4", "--device", "cuda"]
+        synthesize_kernel.launches = 0
+        t0 = time.perf_counter()
+        engine = train_syn.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = synthesize_kernel.launches
+        launches_total += launches
+        steps = engine.iterations
+        calls = [h[0] for h in engine.history]
+        print(f"[4] {arch}: train_syn with --scan auto: {steps} steps in {wall:.2f} s (pool "
+              f"copy, eval and checkpoints included); calls ended at steps {calls}; noise "
+              f"kernel launches {launches}", flush=True)
+        check(calls == [10, 16, 26, 32][:2 * epochs],
+              f"{arch}: --scan auto did not give calls of 10 and 6 steps: {calls}")
+        check(steps == 16 * epochs, f"{arch}: expected {16 * epochs} steps, got {steps}")
+        check(launches == steps, f"{arch}: noise kernel launched {launches} times for {steps} steps")
+        losses = [v for h in engine.history for v in h[1].values()]
+        check(all(math.isfinite(v) for v in losses), f"{arch}: non-finite loss {losses}")
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(SEED)
+            init = build_arch(arch, 4, 4, base_width=32, skip_mode="split").state_dict()
+        moved = max(float((p.detach().cpu() - init[k]).abs().max())
+                    for k, p in engine.model.state_dict().items())
+        check(moved > 0, f"{arch}: parameters did not move")
+        names = [(e, name) for e, name, _ in engine.eval_history]
+        check(names == [(epochs, "sid_eval_100"), (epochs, "sid_eval_300")],
+              f"{arch}: the periodic eval did not run: {engine.eval_history}")
+        for _, name, res in engine.eval_history:
+            check(all(math.isfinite(v) for v in res.values()), f"{arch} {name}: {res}")
+            print(f"[4]   periodic eval {name}: " +
+                  ", ".join(f"{k} {v:.4f}" for k, v in sorted(res.items())), flush=True)
+
+        # per-call rate, host clock around calls that end in a synchronize
+        scan = make_train_scan(engine.model, noise_model="eld", bank=engine.bank, batch=8,
+                               steps_per_call=10, autocast_dtype=torch.bfloat16)
+        rates, per_step = [], []
+        for call in range(4):
+            seeds = [fold_in(SEED, 10_000 + 10 * call + j) for j in range(10)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scan(engine.state, pool, seeds)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if call:  # the first call is a warm-up
+                rates.append(80 / dt)
+                per_step.append(dt / 10 * 1e3)
+        print(f"[4] {arch}: pooled calls of 10 steps (bf16, batch 8, 512^2): "
+              f"{', '.join(f'{r:.1f}' for r in rates)} patches/s; per step "
+              f"{', '.join(f'{m:.2f}' for m in per_step)} ms (phase 3b, per-step "
+              f"path, batch on the card: {', '.join(f'{m:.2f}' for m in step_ms)} ms) "
+              f"on {card}", flush=True)
+        engines[arch] = engine
+    return engines, launches_total
+
+
+# ---- phase 5 ------------------------------------------------------------
+
+def _write_rawpack(path, mosaic, iso, exposure):
+    import numpy as np
+
+    np.savez(path, mosaic=mosaic, black_level=np.float32(512), iso=float(iso),
+             exposure=float(exposure), wb=np.array([2.0, 1.0, 1.5, 1.0], np.float32))
+
+
+def phase5(card, tmp, engines):
+    import copy
+
+    import numpy as np
+    import torch
+
+    from eld_tpu_torch.models import build_arch
+    from eld_tpu_torch.tools import test_eld, test_sid
+    from eld_tpu_torch.train.steps import make_eval_forward
+
+    # (a) the eval forward on the card (f32, TF32 off) against the same
+    # weights on the CPU, on a frame aligned to neither 16 nor 32
+    x = torch.from_numpy(np.random.default_rng(SEED).random((1, 232, 344, 4),
+                                                            dtype=np.float32))
+    for arch, engine in engines.items():
+        cpu_model = build_arch(arch, 4, 4, base_width=32, skip_mode="split")
+        cpu_model.load_state_dict({k: v.cpu() for k, v in engine.model.state_dict().items()})
+        for chop in (False, True):
+            card_out = make_eval_forward(engine.model, chop=chop)(x.cuda()).cpu()
+            cpu_out = make_eval_forward(cpu_model, chop=chop)(x)
+            err = float((card_out - cpu_out).abs().max())
+            check(card_out.shape == x.shape and bool(torch.isfinite(card_out).all())
+                  and err < 1e-4, f"eval forward {arch} chop={chop}: max |err| {err}")
+            print(f"[5a] eval forward {arch} {'chop' if chop else 'pad'} (1, 232, 344, 4): "
+                  f"card == CPU within {err:.3g} (tol 1e-4)", flush=True)
+
+    # (b) test_sid over SID-geometry rawpacks, on the card and on the CPU
+    ckpt = os.path.join(tmp, "ck", "unet", "model_latest.pt")
+    check(os.path.exists(ckpt), f"phase 4 left no {ckpt}")
+    rng = np.random.default_rng(SEED + 1)
+    gt = _smooth_mosaic((2848, 4256), rng)
+    sid = os.path.join(tmp, "sid_full")
+    os.makedirs(os.path.join(sid, "short"))
+    os.makedirs(os.path.join(sid, "long"))
+    pairs = [("00001_00_0.1s.npz", "00001_00_10s.npz", 100),
+             ("00001_00_0.033s.npz", "00001_00_10s.npz", 300)]
+    _write_rawpack(os.path.join(sid, "long", pairs[0][1]), gt, 100, 10)
+    for short, _, ratio in pairs:
+        dark = (512 + (gt.astype(np.float32) - 512) / ratio).astype(np.uint16)
+        _write_rawpack(os.path.join(sid, "short", short), dark, 100, 10 / ratio)
+    pairs_file = os.path.join(tmp, "pairs.txt")
+    with open(pairs_file, "w") as f:
+        f.writelines(f"{a} {b} {r}\n" for a, b, r in pairs)
+    results = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        results[device] = test_sid.main([
+            "--datadir", sid, "--pairs", pairs_file, "--model_path", ckpt, "--device", device,
+            "--checkpoints_dir", os.path.join(tmp, "ck_eval"), "--no-log", "--no-verbose"])
+        print(f"[5b] test_sid on {device}: {time.perf_counter() - t0:.2f} s; " + "; ".join(
+            f"ratio {r}: " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(m.items()))
+            for r, m in sorted(results[device].items())), flush=True)
+    for ratio in (100, 300):
+        got, want = results["cuda"][ratio], results["cpu"][ratio]
+        check(all(math.isfinite(v) for v in got.values()), f"test_sid ratio {ratio}: {got}")
+        dpsnr = max(abs(got[k] - want[k]) for k in ("PSNR", "PSNR_in"))
+        dssim = max(abs(got[k] - want[k]) for k in ("SSIM", "SSIM_in"))
+        check(dpsnr <= 0.01 and dssim <= 1e-4,
+              f"test_sid ratio {ratio}: card vs CPU |dPSNR| {dpsnr}, |dSSIM| {dssim}")
+        print(f"[5b] ratio {ratio}: card == CPU within {dpsnr:.3g} dB PSNR, {dssim:.3g} SSIM "
+              f"(tol 0.01 / 1e-4)", flush=True)
+
+    # (c) test_eld: full frames (crop=False) through the 4-tile chop
+    scene = os.path.join(tmp, "eld", "SonyA7S2", "scene-1")
+    os.makedirs(scene)
+    dark = (512 + (gt.astype(np.float32) - 512) / 100).astype(np.uint16)
+    for img_id in (6, 11, 16):
+        _write_rawpack(os.path.join(scene, f"IMG_{img_id:04d}.npz"), gt, 800, 1.0)
+    for img_id in (4, 9, 14, 5, 10, 15):
+        _write_rawpack(os.path.join(scene, f"IMG_{img_id:04d}.npz"), dark, 800, 0.01)
+    t0 = time.perf_counter()
+    eld = test_eld.main(["--datadir", os.path.join(tmp, "eld"), "--include", "4",
+                         "--suffix", ".npz", "--scenes", "1", "--chop", "--model_path", ckpt,
+                         "--device", "cuda", "--checkpoints_dir", os.path.join(tmp, "ck_eval"),
+                         "--no-log", "--no-verbose"])
+    check(sorted(eld) == [("SonyA7S2", "x100"), ("SonyA7S2", "x200")], f"test_eld: {eld}")
+    for key, res in sorted(eld.items()):
+        check(all(math.isfinite(v) for v in res.values()), f"test_eld {key}: {res}")
+        print(f"[5c] test_eld {key[0]} {key[1]} (1424x2128 full frames, --chop): " +
+              ", ".join(f"{k} {v:.4f}" for k, v in sorted(res.items())), flush=True)
+    print(f"[5c] test_eld: {time.perf_counter() - t0:.2f} s for 6 items", flush=True)
+
+    # (d) full-frame eval-forward times, unet (the phase-4 weights)
+    model = copy.deepcopy(engines["unet"].model).eval()
+    frame = torch.rand((1, 1424, 2128, 4), generator=torch.Generator().manual_seed(SEED)).cuda()
+    times = {}
+    for dtype in (None, torch.bfloat16):
+        for chop in (False, True):
+            fwd = make_eval_forward(model, chop=chop, autocast_dtype=dtype)
+            times[("bf16" if dtype else "f32", "chop" if chop else "pad")] = \
+                cuda_ms(lambda: fwd(frame), reps=5)
+    print("[5d] full-frame (1, 1424, 2128, 4) unet eval forward ms (median of 5, CUDA "
+          "events): " + ", ".join(f"{d} {c} {ms:.2f}" for (d, c), ms in times.items()) +
+          f" on {card}", flush=True)
 
 
 def main():
@@ -359,7 +596,10 @@ def main():
     phase1()
     k = phase2(card)
     s = phase3(card)
-    phase3b(card)
+    step_ms = phase3b(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        engines, pooled_launches = phase4(card, tmp, step_ms)
+        phase5(card, tmp, engines)
 
     import torch
 
@@ -367,7 +607,7 @@ def main():
 
     kernels = {"kernels": [{
         "name": "noise_synth", "route": "cuda", "source": SOURCE_PATH, "replaces": REPLACES,
-        "launches": s["launches"], "max_abs_err": k["max_abs_err"],
+        "launches": s["launches"] + pooled_launches, "max_abs_err": k["max_abs_err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"]}]}
     print(json.dumps(kernels))
     print(card)

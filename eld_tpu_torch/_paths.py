@@ -2,7 +2,8 @@
 
 Importing any ``eld_tpu`` module imports JAX, so the port never imports
 it; it reads the shipped data files (camera calibration ``.npy`` files,
-``libpatchstore.so``) from the sibling ``eld_tpu/data_files`` directory.
+the SID pair lists, ``libpatchstore.so`` and ``librawio.so``) from the
+sibling ``eld_tpu/data_files`` directory.
 """
 
 from __future__ import annotations
@@ -14,5 +15,7 @@ REPO_ROOT = os.path.dirname(PACKAGE_DIR)
 DATA_FILES = os.path.join(REPO_ROOT, "eld_tpu", "data_files")
 CAMERA_PARAMS_DIR = os.path.join(DATA_FILES, "camera_params")
 PATCHSTORE_LIB = os.path.join(DATA_FILES, "native", "libpatchstore.so")
+RAWIO_LIB = os.path.join(DATA_FILES, "native", "librawio.so")
+PAIRS_DIR = os.path.join(DATA_FILES, "pairs")
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(REPO_ROOT, "build", "eld_tpu_torch")

@@ -39,6 +39,22 @@ def lrelu(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, 0.2)
 
 
+def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
+    """(N, H, W, C) -> (N, H/b, W/b, C*b*b), channel order (di, dj, c) as
+    eld_tpu's (``pixel_unshuffle`` would give (c, di, dj))."""
+    n, h, w, c = x.shape
+    x = x.reshape(n, h // block, block, w // block, block, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(n, h // block, w // block, c * block * block)
+
+
+def depth_to_space(x: torch.Tensor, block: int = 2) -> torch.Tensor:
+    """(N, H, W, C*b*b) -> (N, H*b, W*b, C), channel order (di, dj, c)."""
+    n, h, w, cbb = x.shape
+    c = cbb // (block * block)
+    x = x.reshape(n, h, w, block, block, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(n, h * block, w * block, c)
+
+
 def _conv_pair(x, c1: nn.Conv2d, c2: nn.Conv2d):
     return lrelu(c2(lrelu(c1(x))))
 

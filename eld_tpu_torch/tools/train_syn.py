@@ -1,15 +1,18 @@
 """Synthetic-noise training CLI — the flagship entry point (counterpart of
 ``eld_tpu/tools/train_syn.py``, raw-domain path).
 
-Clean patches stream from a PatchStore as uint16; on the device each
-step samples calibrated noise parameters, synthesizes the noisy input
-with the fused CUDA kernel, and trains the U-Net under the reference's
-LR schedule (1e-4 -> 5e-5 @100 -> 1e-5 @180).  Only the per-step loader
-is ported: ``--scan`` stays 0 until the pooled trainer lands.
+Clean patches come from a PatchStore as uint16; on the device each step
+samples calibrated noise parameters, synthesizes the noisy input with the
+fused CUDA kernel, and trains the U-Net under the reference's LR schedule
+(1e-4 -> 5e-5 @100 -> 1e-5 @180).  By default (``--scan -1``) the whole
+clean set is put on the device once and the pooled trainer runs 10 steps
+per call, picking and augmenting its batches there; ``--scan 0`` is the
+per-step host loader.  Every ``--eval_every`` epochs the model is scored
+on the SID indoor-15 subsets of ratio 100 and 300 under ``--evaldir``.
 
 Usage:
   python -m eld_tpu_torch.tools.train_syn --name sid_eld --noise eld --include 4 \\
-      --traindir ./data/Train -b 8 --bf16
+      --traindir ./data/Train --evaldir ./data/SID/Sony -b 8 --bf16
 """
 
 from __future__ import annotations
@@ -20,12 +23,16 @@ import sys
 from os.path import join
 
 import numpy as onp
+import torch
 
 from eld_tpu_torch import config as config_mod
-from eld_tpu_torch.data.datasets import CleanPatchDataset
-from eld_tpu_torch.data.loader import Loader
+from eld_tpu_torch.data.datasets import CleanPatchDataset, SIDDataset
+from eld_tpu_torch.data.loader import Loader, pool_to_device
+from eld_tpu_torch.data.pairs import eval_pairs_by_ratio
 from eld_tpu_torch.data.patchstore import PatchStore
 from eld_tpu_torch.train.engine import Engine
+
+AUTO_SCAN = 10
 
 
 def lr_for_epoch(epoch: int) -> float:
@@ -38,26 +45,71 @@ def lr_for_epoch(epoch: int) -> float:
     return 1e-5
 
 
+def device_memory_bytes(device) -> int:
+    """Memory of the card, or of the host for a CPU device."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+
+
+def pool_budget_bytes(memory_bytes: int) -> int:
+    """How large a device-resident pool may be: half the device's memory.
+    The other half is left to what runs beside the pool: the train step's
+    working set (a few GB at batch 8 on 512^2 patches), the full-frame
+    eval forward of the periodic eval, and the caching allocator's slack.
+    On an 80 GB H100 that admits 40 GB, so the SID clean set
+    (1288 x 512^2 x 4 x 2 B = 2.70 GB) is pooled with room to spare."""
+    return memory_bytes // 2
+
+
+def resolve_scan(scan: int, pool_bytes: int, budget_bytes: int, srgb: bool) -> int:
+    """``--scan`` as given when >= 0; auto (-1): 0 for the sRGB stages,
+    else AUTO_SCAN when the pool fits the budget, else 0 (per-step loader)."""
+    if scan >= 0:
+        return scan
+    if srgb:
+        return 0
+    if pool_bytes > budget_bytes:
+        print(f"[i] clean pool is {pool_bytes / 1e9:.2f} GB > {budget_bytes / 1e9:.2f} GB "
+              "pool budget; using the per-step loader (pass --scan K to override)",
+              file=sys.stderr)
+        return 0
+    return AUTO_SCAN
+
+
 def _refuse_unported(ns, cfg):
     """Raise for the options this trainer does not implement yet; each
     message names the ROADMAP.md queue-1 item that brings it."""
     missing = []
-    if ns.scan > 0:
-        missing.append("--scan K > 0 (pooled trainer: queue 1 #6)")
     if ns.offline_noise:
         missing.append("--offline_noise (paired train_real: queue 1 #7)")
-    if cfg.stage_in == "srgb" or cfg.stage_out == "srgb":
-        missing.append("sRGB stages (ISP: queue 1 #9)")
+    if cfg.stage_in == "srgb" or cfg.stage_out == "srgb" or cfg.stage_eval == "srgb" or cfg.crf:
+        missing.append("sRGB stages / --crf (ISP: queue 1 #9)")
     if cfg.multihost or cfg.mesh_data > 1 or cfg.mesh_spatial > 1:
         missing.append("--multihost / --mesh_* > 1 (parallel: queue 1 #13)")
     if not cfg.noise:
         missing.append("paired training without --noise (train_real: queue 1 #7)")
-    if cfg.resume or cfg.model_path:
-        missing.append("--resume / --model_path (Engine.load: queue 1 #10)")
     if cfg.profile:
         missing.append("--profile (torch.profiler with the bench: queue 1 #15)")
     if missing:
         raise NotImplementedError("not ported yet: " + "; ".join(missing))
+
+
+def _eval_loaders(evaldir: str, cfg) -> dict:
+    """Loaders of the SID indoor-15 pairs of ratio 100 and 300; raises
+    when a file of them is missing under ``evaldir``."""
+    pairs = eval_pairs_by_ratio()
+    loaders = {}
+    for ratio in (100, 300):
+        for short, long_ in pairs[ratio]:
+            for path in (join(evaldir, "short", short), join(evaldir, "long", long_)):
+                if not os.path.exists(path):
+                    raise FileNotFoundError(path)
+        ds = SIDDataset(evaldir, pairs[ratio], augment=False, memorize=False,
+                        rng=onp.random.default_rng(cfg.seed))
+        loaders[ratio] = Loader(ds, batch_size=1, num_workers=0)
+    return loaders
 
 
 def main(argv=None):
@@ -67,9 +119,11 @@ def main(argv=None):
     pre.add_argument("--epochs", type=int, default=200)
     pre.add_argument("--offline_noise", action="store_true")
     pre.add_argument("--eval_every", type=int, default=20)
-    pre.add_argument("--scan", type=int, default=0, metavar="K",
-                     help="optimizer steps per launch over a device-resident "
-                          "pool; only 0 (the per-step loader) is ported")
+    pre.add_argument("--scan", type=int, default=-1, metavar="K",
+                     help="optimizer steps per call over the clean set held on the "
+                          "device; 0: the per-step host loader; -1 (default): "
+                          f"{AUTO_SCAN} when the uint16 pool fits half the device's "
+                          "memory, else 0")
     ns, rest = pre.parse_known_args(argv)
     cfg = config_mod.parse(rest, train=True)
     _refuse_unported(ns, cfg)
@@ -80,15 +134,37 @@ def main(argv=None):
                                  rng=onp.random.default_rng(cfg.seed))
     train_loader = Loader(train_ds, batch_size=cfg.batch_size, shuffle=True,
                           num_workers=cfg.n_threads, seed=cfg.seed, drop_last=True)
-    if os.path.isdir(ns.evaldir):
-        print(f"[i] eval is not ported yet (ROADMAP.md queue 1 #8-#11); "
-              f"{ns.evaldir} is not used", file=sys.stderr)
+    try:
+        eval_loaders = _eval_loaders(ns.evaldir, cfg)
+    except (OSError, ValueError) as e:  # eval data is optional during training
+        eval_loaders = {}
+        print(f"[i] eval datasets unavailable: {e}", file=sys.stderr)
 
     engine = Engine(cfg)
     print(f"[i] using noise model {cfg.noise!r} (on-device)")
+    pool_bytes = len(store) * int(onp.prod(store.shape)) * onp.dtype(store.dtype).itemsize
+    scan = resolve_scan(ns.scan, pool_bytes,
+                        pool_budget_bytes(device_memory_bytes(engine.device)),
+                        srgb=cfg.stage_in == "srgb" or cfg.stage_out == "srgb")
+    pool = None
+    if scan > 0:
+        print(f"[i] pooled trainer: {len(store)} patches ({pool_bytes / 1e9:.2f} GB) on "
+              f"{engine.device}, {scan} steps per call")
+        pool = {"clean": pool_to_device(store, engine.device)}
+        steps_per_epoch = max(1, len(train_ds) // cfg.batch_size)
+
     while engine.epoch < ns.epochs:
         engine.set_learning_rate(lr_for_epoch(engine.epoch))
-        engine.train(train_loader)
+        if pool is not None:
+            engine.train_pool(pool, steps_per_epoch, steps_per_call=scan)
+        else:
+            engine.train(train_loader)
+        if engine.epoch % ns.eval_every == 0 and eval_loaders:
+            try:
+                engine.eval(eval_loaders[100], dataset_name="sid_eval_100", correct=True)
+                engine.eval(eval_loaders[300], dataset_name="sid_eval_300", correct=True)
+            except Exception as e:  # noqa: BLE001 - a failed eval does not stop training
+                print(f"[w] eval failed: {e}", file=sys.stderr)
     return engine
 
 

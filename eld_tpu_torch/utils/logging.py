@@ -28,6 +28,9 @@ class AverageMeters:
     def keys(self):
         return self.sums.keys()
 
+    def as_dict(self):
+        return {k: self[k] for k in self.keys()}
+
     def __str__(self):
         return " | ".join(f"{k}: {self[k]:.4f}" for k in sorted(self.keys()))
 

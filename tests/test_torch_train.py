@@ -277,21 +277,23 @@ def test_train_syn_cli_runs_two_steps_on_cpu(tmp_path):
     _write(PatchStoreWriter, str(tmp_path / "SID_Sony_Raw.eps"), recs)
     argv = ["--traindir", str(tmp_path), "--checkpoints_dir", str(tmp_path / "ck"),
             "--device", "cpu", "--noise", "eld", "--include", "4", "--base_width", "4",
-            "-b", "2", "--epochs", "1", "--no-log", "--no-verbose", "--nThreads", "0"]
+            "-b", "2", "--epochs", "1", "--no-log", "--no-verbose", "--nThreads", "0",
+            "--scan", "0"]
     eng = train_syn.main(argv)
     assert eng.iterations == 2
     assert all(onp.isfinite(h[1]["Pixel"]) for h in eng.history)
     assert train_syn.lr_for_epoch(99) == 1e-4 and train_syn.lr_for_epoch(100) == 5e-5
     assert train_syn.lr_for_epoch(180) == 1e-5
-    for extra in (["--scan", "10"], ["--offline_noise"], ["--stage_in", "srgb"],
-                  ["--mesh_data", "2"]):
+    for extra in (["--profile"], ["--offline_noise"], ["--stage_in", "srgb"],
+                  ["--mesh_data", "2"], ["--crf"], ["--stage_eval", "srgb"]):
         with pytest.raises(NotImplementedError):
             train_syn.main(argv + extra)
 
 
 def test_package_imports_without_jax_or_nvcc():
-    """Every eld_tpu_torch module imports in a fresh interpreter without
-    pulling in JAX, and importing builds no kernel."""
+    """Every eld_tpu_torch module (the eval stack and the entry points
+    included) imports in a fresh interpreter without pulling in JAX, and
+    importing builds no kernel and loads no native library."""
     code = (
         "import importlib, pkgutil, sys, eld_tpu_torch\n"
         "names = [m.name for m in\n"
@@ -299,7 +301,13 @@ def test_package_imports_without_jax_or_nvcc():
         "for n in names: importlib.import_module(n)\n"
         "from eld_tpu_torch.noise.kernels import synthesize_kernel\n"
         "from eld_tpu_torch import _build\n"
+        "from eld_tpu_torch.data.rawio import _load_native\n"
         "assert 'jax' not in sys.modules and not _build._LOADED\n"
+        "assert _load_native.cache_info().currsize == 0\n"
+        "for n in ('models.unet_s2d', 'ops.chop', 'ops.correct', 'ops.metrics',\n"
+        "          'core.packing', 'data.pairs', 'data.rawio', 'utils.images',\n"
+        "          'train.checkpoints', 'tools.test_sid', 'tools.test_eld'):\n"
+        "    assert 'eld_tpu_torch.' + n in names, n\n"
         "assert synthesize_kernel.launches == 0\n"
         "print(len(names))\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -307,4 +315,4 @@ def test_package_imports_without_jax_or_nvcc():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
                          cwd=root)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 25
+    assert int(out.stdout.strip()) >= 38

@@ -1,4 +1,5 @@
-"""The port's U-Net (eld_tpu_torch.models) against eld_tpu's Flax model.
+"""The port's U-Nets (eld_tpu_torch.models: unet, unet_s2d, unet_s2d4)
+against eld_tpu's Flax models.
 
 Weights are carried across by eld_tpu_torch.compat.jax_params; both run
 in float32 on the CPU (TF32 is off, though it has no effect there).
@@ -15,11 +16,15 @@ import pytest
 import torch
 
 from eld_tpu.compat.torch_import import convert_unet_state_dict, export_torch_state_dict
+from eld_tpu.models import arch_names as jax_arch_names
 from eld_tpu.models import build_arch as jax_build_arch
+from eld_tpu.models.unet import depth_to_space as jax_depth_to_space
+from eld_tpu.models.unet import space_to_depth as jax_space_to_depth
 from eld_tpu_torch.compat.jax_params import flax_to_state_dict, state_dict_to_flax
-from eld_tpu_torch.models import build_arch
+from eld_tpu_torch.models import arch_names, build_arch
 from eld_tpu_torch.models.netutils import param_count
-from eld_tpu_torch.models.unet import UNetSeeInDark
+from eld_tpu_torch.models.unet import UNetSeeInDark, depth_to_space, space_to_depth
+from eld_tpu_torch.models.unet_s2d import UNetS2D
 from tests.test_torch_import import make_torch_state_dict, torch_forward
 
 
@@ -39,24 +44,21 @@ VARIANTS = [("concat", "convt", None), ("concat", "d2s", None), ("split", "convt
             ("split", "d2s", None), ("split", "convt", "bf16")]
 
 
-def _pair(skip_mode, upsample, skip, width=8):
+def _pair(skip_mode, upsample, skip, width=8, arch="unet"):
     """The port's model with torch's (the reference's) default init, and the
     Flax model with the same weights carried across."""
     torch.manual_seed(0)
-    tm = build_arch("unet", 4, 4, base_width=width, skip_mode=skip_mode, upsample=upsample,
+    tm = build_arch(arch, 4, 4, base_width=width, skip_mode=skip_mode, upsample=upsample,
                     skip_dtype=torch.bfloat16 if skip else None)
-    jm = jax_build_arch("unet", 4, 4, base_width=width, skip_mode=skip_mode, upsample=upsample,
+    jm = jax_build_arch(arch, 4, 4, base_width=width, skip_mode=skip_mode, upsample=upsample,
                         skip_dtype=jnp.bfloat16 if skip else None)
     return jm, state_dict_to_flax(tm.state_dict()), tm
 
 
-@pytest.mark.parametrize("skip_mode,upsample,skip", VARIANTS,
-                         ids=["-".join(str(x) for x in v) for v in VARIANTS])
-def test_forward_and_input_gradient_match_flax(skip_mode, upsample, skip):
-    jm, params, tm = _pair(skip_mode, upsample, skip)
+def _forward_and_input_gradient(jm, params, tm, size, skip=None, fwd_atol=2e-5):
     rng = onp.random.default_rng(0)
-    x = rng.random((2, 32, 32, 4), dtype=onp.float32)
-    w = rng.standard_normal((2, 32, 32, 4)).astype(onp.float32)
+    x = rng.random((2, size, size, 4), dtype=onp.float32)
+    w = rng.standard_normal((2, size, size, 4)).astype(onp.float32)
 
     @jax.jit
     def forward_and_vjp(p, x_, w_):
@@ -68,12 +70,45 @@ def test_forward_and_input_gradient_match_flax(skip_mode, upsample, skip):
     xt = torch.from_numpy(x).requires_grad_(True)
     y = tm(xt)
     (y * torch.from_numpy(w)).sum().backward()
-    onp.testing.assert_allclose(y.detach().numpy(), y_ref, rtol=0, atol=2e-5)
+    onp.testing.assert_allclose(y.detach().numpy(), y_ref, rtol=0, atol=fwd_atol)
     # with bf16 skips both frameworks round the skip path's cotangent to
     # bf16 (the VJP of the cast), so an f32-ulp difference upstream can flip
     # one bf16 rounding (2^-8 relative) in that path: atol 5e-5 there
     onp.testing.assert_allclose(xt.grad.numpy(), g_ref, rtol=1e-4,
                                 atol=5e-5 if skip else 1e-5)
+
+
+@pytest.mark.parametrize("skip_mode,upsample,skip", VARIANTS,
+                         ids=["-".join(str(x) for x in v) for v in VARIANTS])
+def test_forward_and_input_gradient_match_flax(skip_mode, upsample, skip):
+    _forward_and_input_gradient(*_pair(skip_mode, upsample, skip), size=32, skip=skip)
+
+
+@pytest.mark.parametrize("arch,size", [("unet_s2d", 64), ("unet_s2d4", 64)])
+def test_s2d_forward_and_input_gradient_match_flax(arch, size):
+    """unet_s2d / unet_s2d4 at width 4: the Flax checkpoint carries across
+    through compat/jax_params unchanged (same inner parameter names), and
+    forward and input gradient agree as for unet."""
+    jm, params, tm = _pair("split", "convt", None, width=4, arch=arch)
+    assert isinstance(tm, UNetS2D) and tm.conv1_1.in_channels == 4 * tm.block ** 2
+    _forward_and_input_gradient(jm, params, tm, size=size, fwd_atol=1e-5)
+
+
+def test_space_to_depth_keeps_the_jax_channel_order():
+    """(di, dj, c) channel order, exactly eld_tpu's in both directions
+    (pixel_unshuffle's (c, di, dj) order would differ)."""
+    x = onp.random.default_rng(2).random((2, 8, 12, 4), dtype=onp.float32)
+    for block in (2, 4):
+        ours = space_to_depth(torch.from_numpy(x), block)
+        onp.testing.assert_array_equal(ours.numpy(),
+                                       onp.asarray(jax_space_to_depth(jnp.asarray(x), block)))
+        back = depth_to_space(ours, block)
+        onp.testing.assert_array_equal(back.numpy(), x)
+        onp.testing.assert_array_equal(
+            back.numpy(), onp.asarray(jax_depth_to_space(jnp.asarray(ours.numpy()), block)))
+    assert not torch.equal(space_to_depth(torch.from_numpy(x), 2),
+                           torch.nn.functional.pixel_unshuffle(
+                               torch.from_numpy(x).permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1))
 
 
 def test_remat_is_exact():
@@ -131,6 +166,10 @@ def test_converter_equals_eld_tpu_conversions():
 
 def test_registry_and_alignment():
     assert isinstance(build_arch("unet", 4, 4, base_width=4), UNetSeeInDark)
+    assert arch_names() == jax_arch_names() == ["unet", "unet_s2d", "unet_s2d4"]
+    assert build_arch("unet_s2d", 4, 4, base_width=4).alignment() == 32
+    # eld_tpu's block-4 model also reports 32; its decoder needs 64
+    assert build_arch("unet_s2d4", 4, 4, base_width=4).alignment() == 64
     with pytest.raises(KeyError) as ours:
         build_arch("unet_nope", 4, 4)
     with pytest.raises(KeyError) as ref:
