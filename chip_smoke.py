@@ -9,10 +9,14 @@ Phases, one line or block of output each; any failure exits non-zero:
   0. environment: torch/CUDA versions, the card's name and power limit;
   1. build the fused noise kernel from eld_tpu_torch/csrc and check its
      Philox generator against the Random123 known answer;
-  2. the kernel against its plain PyTorch version at the slice's shape
-     (8, 512, 512, 4): exact against noise_core fed the kernel's own draws,
-     per-image moments, Poisson histograms, row structure, seeds, range,
-     and both times (CUDA events);
+  2. the kernel against its plain PyTorch version: exact against
+     noise_core fed the kernel's own draws for ten models at the slice's
+     shape (8, 512, 512, 4), a ragged, a one-pixel-wide, a 9-channel
+     and a 1100-pixel-wide shape; per-image moments, Poisson histograms,
+     row structure, seeds, range at the slice's shape; its registers and
+     spills (nvcc -Xptxas -v); on uniform and on smooth input, the
+     wrapper's time (as in earlier runs) and the kernel's alone (CUDA
+     events), and its bound from the bytes and the f32 operations;
   3. the slice: eld_tpu_torch.tools.train_syn.main over a PatchStore of 32
      smooth 512x512x4 patches, --noise eld --include 4 -b 8 --bf16 --scan 0
      (the per-step loader), 3 epochs = 12 optimizer steps through the
@@ -44,6 +48,13 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 SLICE_SHAPE = (8, 512, 512, 4)
 SEED = 2018
+# every component alone, the two shot/read pairs, the full model and its alias
+MODELS = ("g", "p", "pg", "Pg", "G", "r", "q", "c", "eld", "Pgrqc")
+# the slice's shape; ragged (odd H and W); one pixel per row; 9 channels;
+# rows wider than a block (several pixels per thread)
+KERNEL_SHAPES = (SLICE_SHAPE, (3, 37, 53, 4), (2, 5, 1, 4), (2, 33, 31, 9), (1, 3, 1100, 4))
+H100_BYTES_PER_S = 3.35e12  # HBM3 of the H100 SXM
+H100_F32_OPS_PER_S = 67e12  # float32 outside the tensor cores, H100 SXM
 
 
 def fail(msg: str):
@@ -64,9 +75,11 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 20) -> float:
+def cuda_ms(fn, reps: int = 20, spin: bool = False) -> float:
     """Median over ``reps`` of one call's device time (CUDA events), after
-    one warm-up call."""
+    one warm-up call.  With ``spin`` the card first spins for ~1 ms, so the
+    call is queued whole before it runs and the interval holds its device
+    work alone, not the host's time to issue it."""
     import torch
 
     fn()
@@ -74,12 +87,36 @@ def cuda_ms(fn, reps: int = 20) -> float:
     times = []
     for _ in range(reps):
         t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if spin:
+            torch.cuda._sleep(2_000_000)
         t0.record()
         fn()
         t1.record()
         t1.synchronize()
         times.append(t0.elapsed_time(t1))
     return sorted(times)[reps // 2]
+
+
+def kernel_only(lib, seed, clean, params, model, clip):
+    """A call of ``lib``'s kernel alone on ``clean``: the parameter rows are
+    packed and the output allocated once, outside the call."""
+    import torch
+
+    from eld_tpu_torch.noise import kernels
+
+    n, h, w, c = clean.shape
+    packed = kernels.pack_params(params, n)
+    out = torch.empty_like(clean)
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (clean.data_ptr(), out.data_ptr(), packed.data_ptr(), n, h, w, c,
+            kernels.model_flags(model), int(clip), seed, stream)
+
+    def call():
+        rc = lib.eld_noise_synth(*args)
+        check(rc == 0, f"launch failed ({rc})")
+        return out
+
+    return call
 
 
 # ---- phase 0 ------------------------------------------------------------
@@ -134,9 +171,11 @@ def phase2(card):
     import scipy.stats as sps
     import torch
 
+    from eld_tpu_torch.noise import kernels
     from eld_tpu_torch.noise.kernels import kernel_draws, synthesize_kernel
     from eld_tpu_torch.noise.model import noise_core, synthesize
     from eld_tpu_torch.noise.params import NoiseParams, load_camera_params, sample_params_batch
+    from eld_tpu_torch.train.steps import to_f32
 
     dev = torch.device("cuda")
     n = SLICE_SHAPE[0]
@@ -145,19 +184,29 @@ def phase2(card):
     clean = torch.rand(SLICE_SHAPE, generator=gen, device=dev)
     params = sample_params_batch(gen, bank, n)
 
-    # (a) exact: the kernel equals noise_core fed the kernel's own draws.
-    # Every operation is the same IEEE f32 operation in the same order, so
-    # the tolerance is 1e-5 (a Poisson count flip would exceed it).
+    # (a) exact: the kernel equals noise_core fed the kernel's own draws,
+    # for every model at every shape.  Every operation is the same IEEE f32
+    # operation in the same order, so the tolerance is 1e-5 (a Poisson count
+    # flip would exceed it) and 0 is expected.
     max_err = 0.0
-    for model in ("g", "pg", "Pg", "eld", "Pgrqc"):
-        seed = 0x1234_5678_9ABC_DEF0
-        out = synthesize_kernel(seed, clean, params, model, clip=False)
-        ref = noise_core(clean, params, model, kernel_draws(seed, clean.shape, model, dev))
-        err = float((out - ref).abs().max())
-        check(err <= 1e-5, f"kernel vs noise_core({model}) max |err| {err}")
+    seed = 0x1234_5678_9ABC_DEF0
+    for shape in KERNEL_SHAPES:
+        if shape == SLICE_SHAPE:
+            x, p = clean, params
+        else:
+            g = torch.Generator(device=dev).manual_seed(SEED + 1)
+            x = torch.rand(shape, generator=g, device=dev)
+            p = sample_params_batch(g, bank, shape[0])
+        err = 0.0
+        for model in MODELS:
+            out = synthesize_kernel(seed, x, p, model, clip=False)
+            ref = noise_core(x, p, model, kernel_draws(seed, shape, model, dev))
+            e = float((out - ref).abs().max())
+            check(e <= 1e-5, f"kernel vs noise_core({model}) at {shape}: max |err| {e}")
+            err = max(err, e)
         max_err = max(max_err, err)
-    print(f"[2a] kernel == noise_core on its own draws for g pg Pg eld Pgrqc: "
-          f"max |err| {max_err:.3g} (tol 1e-5)", flush=True)
+        print(f"[2a] {shape}: kernel == noise_core on its own draws for {' '.join(MODELS)}: "
+              f"max |err| {err:.3g} (tol 1e-5)", flush=True)
 
     # (b) moments per image against the plain version, with the bounds of
     # tests/test_pallas_noise.py: mean within 6 standard errors (+ the row
@@ -238,32 +287,148 @@ def phase2(card):
     check(float(raw.min()) < 0, "clip=False lost the sub-zero noise floor")
     print("[2f] clip=True in [0,1]; clip=False keeps values below zero", flush=True)
 
-    # (g) times at the slice's shape, full model, clip=True
-    ms = cuda_ms(lambda: synthesize_kernel(9, clean, params, "eld"))
-    plain_ms = cuda_ms(lambda: synthesize(gen, clean, params, "eld"))
-    print(f"[2g] eld {tuple(SLICE_SHAPE)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-          f"(median of 20, CUDA events) on {card}", flush=True)
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+    # (g) registers and spills, and times at the slice's shape, full model,
+    # clip=True, on uniform input and on the smooth patches the trainers see
+    with tempfile.TemporaryDirectory() as tmp:
+        _, report = _build_verbose(os.path.join(HERE, kernels.SOURCE_PATH), tmp)
+    for r in report:
+        print(f"[2g] {r['kernel']}: {r['registers']} registers, spill stores "
+              f"{r['spill_stores']} B, spill loads {r['spill_loads']} B (nvcc -Xptxas -v)",
+              flush=True)
+    if not report:
+        print("[2g] registers and spills: not in the build log", flush=True)
+    # ms / ms_smooth: the wrapper (checks, parameter packing, launch) as
+    # earlier runs timed it; kernel_ms*: the kernel alone, host issue time
+    # kept out of the interval
+    smooth = to_f32(_smooth_u16(n, dev))  # as the trainers normalize it
+    lib = kernels.load_library()
+    t = {"ms": cuda_ms(lambda: synthesize_kernel(9, clean, params, "eld")),
+         "ms_smooth": cuda_ms(lambda: synthesize_kernel(9, smooth, params, "eld")),
+         "kernel_ms": cuda_ms(kernel_only(lib, 9, clean, params, "eld", True), spin=True),
+         "kernel_ms_smooth": cuda_ms(kernel_only(lib, 9, smooth, params, "eld", True),
+                                     spin=True),
+         "plain_ms": cuda_ms(lambda: synthesize(gen, clean, params, "eld"))}
+    bytes_ms = _noise_bytes_ms(SLICE_SHAPE)
+    ops_ms = {name: _noise_ops_ms(9, x, params) for name, x in (("uniform", clean),
+                                                                ("smooth", smooth))}
+    bound_ms = max(bytes_ms, ops_ms["uniform"])
+    bound_by = "bytes" if bytes_ms >= ops_ms["uniform"] else "operations"
+    print(f"[2g] eld {tuple(SLICE_SHAPE)} (median of 20, CUDA events): wrapper "
+          f"{t['ms']:.4f} ms on uniform input, {t['ms_smooth']:.4f} ms on smooth patches; "
+          f"kernel alone {t['kernel_ms']:.4f} / {t['kernel_ms_smooth']:.4f} ms; plain "
+          f"{t['plain_ms']:.4f} ms; bound by bytes {bytes_ms:.4f} ms, by f32 operations "
+          f"{ops_ms['uniform']:.4f} / {ops_ms['smooth']:.4f} ms; on {card}", flush=True)
+    return {"max_abs_err": max_err, **t, "bound_ms": bound_ms, "bound_by": bound_by,
+            "ops_ms": ops_ms["uniform"]}
+
+
+def _noise_bytes_ms(shape) -> float:
+    """K1's time by bytes: each byte of the clean batch and the (N, 12)
+    parameter rows read once, each output byte written once, at the
+    H100's memory rate."""
+    nbytes = 2 * math.prod(shape) * 4 + shape[0] * 12 * 4
+    return nbytes / H100_BYTES_PER_S * 1e3
+
+
+def _noise_ops_ms(seed, clean, params) -> float:
+    """K1's time by f32 operations for model 'eld' (PGrqc, C = 4, clip on)
+    on this input and seed, at the H100's float32 peak.  Each IEEE
+    operation, min/max, compare, int-to-float conversion and transcendental
+    in noise_synth.cu counts once: 31 per element outside the shot draw,
+    then per element either the small-lam Poisson step (4, plus 6 per loop
+    term; the loop runs once per count) or the large-lam Box-Muller branch
+    (14).  The Philox generator's integer work has no rate in that table
+    and is left out, so this is a least time."""
+    import torch
+
+    from eld_tpu_torch.noise.fast_poisson import SMALL_MAX, poisson_small_from_uniform
+    from eld_tpu_torch.noise.kernels import kernel_draws
+
+    n = clean.shape[0]
+    draws = kernel_draws(seed, clean.shape, "eld", clean.device)
+    y = clean * params.saturation_level.reshape(n, 1, 1, 1) / params.ratio.reshape(n, 1, 1, 1)
+    lam = torch.clamp_min(y / params.K.reshape(n, 1, 1, 1), 0.0)
+    small = lam <= SMALL_MAX
+    counts = poisson_small_from_uniform(lam * small, draws["poisson_u"])
+    ops = 31 * lam.numel() + float((4 + 6 * counts)[small].sum()) + 14 * int((~small).sum())
+    return ops / H100_F32_OPS_PER_S * 1e3
+
+
+def _smooth_u16(count, dev):
+    """``count`` of _write_store's smooth 512x512x4 patches on the card,
+    quantized to uint16 as the store keeps them."""
+    import numpy as np
+    import torch
+
+    imgs = np.stack(list(_smooth_patches(count)))
+    return torch.from_numpy(np.clip(np.rint(imgs * 65535), 0, 65535).astype(np.uint16)).to(dev)
+
+
+def _build_verbose(src, out_dir):
+    """Build ``src`` with the package's nvcc flags plus ptxas's report into
+    ``out_dir``; returns the library's path and, per kernel, its registers
+    and spill bytes as the build log gives them."""
+    import re
+
+    from eld_tpu_torch import _build
+
+    lib = os.path.join(out_dir, "lib" + os.path.basename(src)[:-3] + ".so")
+    proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", lib,
+                           src], capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    check(proc.returncode == 0, f"nvcc failed on {src}:\n{log}")
+    report, fn, spills = [], None, (None, None)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn, spills = _kernel_name(m.group(1)), (None, None)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            report.append({"kernel": fn, "registers": int(m.group(1)),
+                           "spill_stores": spills[0], "spill_loads": spills[1]})
+            fn = None
+    return lib, report
+
+
+def _kernel_name(mangled: str) -> str:
+    import re
+
+    m = re.search(r"noise_synth_kernel(ILb([01])E)?", mangled)
+    if not m:
+        return mangled
+    return "noise_synth_kernel" + {"1": "<true>", "0": "<false>"}.get(m.group(2) or "", "")
 
 
 # ---- phase 3 ------------------------------------------------------------
 
-def _write_store(path, count=32, size=512, seed=SEED):
-    """Smooth uint16 patches: a few random low-frequency sinusoids each."""
+def _smooth_patches(count, size=512, seed=SEED):
+    """Smooth float32 (size, size, 4) patches in [0, 1]: a few random
+    low-frequency sinusoids each, times a random exposure."""
     import numpy as np
-
-    from eld_tpu_torch.data.patchstore import PatchStoreWriter
 
     rng = np.random.default_rng(seed)
     yy, xx = np.meshgrid(np.linspace(0, 1, size, dtype=np.float32),
                          np.linspace(0, 1, size, dtype=np.float32), indexing="ij")
+    for _ in range(count):
+        img = np.empty((size, size, 4), np.float32)
+        for ch in range(4):
+            fy, fx, ph = rng.uniform(0.5, 4), rng.uniform(0.5, 4), rng.uniform(0, 6.3)
+            img[..., ch] = 0.5 + 0.4 * np.sin(2 * np.pi * (fy * yy + fx * xx) + ph)
+        yield img * rng.uniform(0.05, 1.0)
+
+
+def _write_store(path, count=32, size=512, seed=SEED):
+    """A uint16 PatchStore of _smooth_patches."""
+    import numpy as np
+
+    from eld_tpu_torch.data.patchstore import PatchStoreWriter
+
     with PatchStoreWriter(path, (size, size, 4), np.uint16) as w:
-        for _ in range(count):
-            img = np.empty((size, size, 4), np.float32)
-            for ch in range(4):
-                fy, fx, ph = rng.uniform(0.5, 4), rng.uniform(0.5, 4), rng.uniform(0, 6.3)
-                img[..., ch] = 0.5 + 0.4 * np.sin(2 * np.pi * (fy * yy + fx * xx) + ph)
-            w.append(img * rng.uniform(0.05, 1.0))
+        for img in _smooth_patches(count, size, seed):
+            w.append(img)
 
 
 def phase3(card):
@@ -402,7 +567,8 @@ def _write_sid_eval(root):
 
 def phase4(card, tmp, step_ms):
     """train_syn at its defaults (the pooled trainer) on unet and unet_s2d,
-    with the periodic eval; returns the engines and the kernel launches."""
+    with the periodic eval; returns the engines, the kernel launches and
+    the optimizer steps."""
     import torch
 
     from eld_tpu_torch.data import rawio
@@ -424,7 +590,7 @@ def phase4(card, tmp, step_ms):
     print(f"[4] pool: {tuple(pool['clean'].shape)} uint16, "
           f"{pool['clean'].numel() * 2 / 1e6:.1f} MB on the card", flush=True)
 
-    engines, launches_total = {}, 0
+    engines, launches_total, steps_total = {}, 0, 0
     for arch, epochs in (("unet", 2), ("unet_s2d", 1)):
         argv = ["--traindir", traindir, "--evaldir", evaldir,
                 "--checkpoints_dir", os.path.join(tmp, "ck"), "--name", arch, "--netG", arch,
@@ -439,6 +605,7 @@ def phase4(card, tmp, step_ms):
         launches = synthesize_kernel.launches
         launches_total += launches
         steps = engine.iterations
+        steps_total += steps
         calls = [h[0] for h in engine.history]
         print(f"[4] {arch}: train_syn with --scan auto: {steps} steps in {wall:.2f} s (pool "
               f"copy, eval and checkpoints included); calls ended at steps {calls}; noise "
@@ -483,7 +650,7 @@ def phase4(card, tmp, step_ms):
               f"path, batch on the card: {', '.join(f'{m:.2f}' for m in step_ms)} ms) "
               f"on {card}", flush=True)
         engines[arch] = engine
-    return engines, launches_total
+    return engines, launches_total, steps_total
 
 
 # ---- phase 5 ------------------------------------------------------------
@@ -592,23 +759,29 @@ def phase5(card, tmp, engines):
 
 
 def main():
+    check(len(sys.argv) == 1, f"unknown arguments {sys.argv[1:]}")
     card = phase0()
     phase1()
     k = phase2(card)
     s = phase3(card)
     step_ms = phase3b(card)
     with tempfile.TemporaryDirectory() as tmp:
-        engines, pooled_launches = phase4(card, tmp, step_ms)
+        engines, pooled_launches, pooled_steps = phase4(card, tmp, step_ms)
         phase5(card, tmp, engines)
 
     import torch
 
     from eld_tpu_torch.noise.kernels import REPLACES, SOURCE_PATH
 
+    launches = s["launches"] + pooled_launches
     kernels = {"kernels": [{
         "name": "noise_synth", "route": "cuda", "source": SOURCE_PATH, "replaces": REPLACES,
-        "launches": s["launches"] + pooled_launches, "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"], "plain_ms": k["plain_ms"]}]}
+        "launches": launches, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes this function
+        "ms_smooth": k["ms_smooth"], "kernel_ms": k["kernel_ms"],
+        "kernel_ms_smooth": k["kernel_ms_smooth"], "ops_ms": k["ops_ms"],
+        "launches_per_step": launches / (s["steps"] + pooled_steps)}]}
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

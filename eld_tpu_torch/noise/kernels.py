@@ -42,20 +42,27 @@ def model_flags(model: str) -> int:
     return flags
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C entry points' argument types on a loaded build of the
+    kernel's source (this one, or another with the same C interface)."""
+    lib.eld_noise_synth.restype = ctypes.c_int
+    lib.eld_noise_synth.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_int, ctypes.c_uint64, ctypes.c_void_p,
+    ]
+    lib.eld_philox4x32_10.restype = None
+    lib.eld_philox4x32_10.argtypes = [ctypes.c_void_p] * 3
+    lib.eld_cuda_error_string.restype = ctypes.c_char_p
+    lib.eld_cuda_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
 def load_library() -> ctypes.CDLL:
     """Build (first use) and bind the kernel's shared library."""
     lib = _build.load("noise_synth", SOURCES)
     if not hasattr(lib, "_eld_bound"):
-        lib.eld_noise_synth.restype = ctypes.c_int
-        lib.eld_noise_synth.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int, ctypes.c_int, ctypes.c_uint64, ctypes.c_void_p,
-        ]
-        lib.eld_philox4x32_10.restype = None
-        lib.eld_philox4x32_10.argtypes = [ctypes.c_void_p] * 3
-        lib.eld_cuda_error_string.restype = ctypes.c_char_p
-        lib.eld_cuda_error_string.argtypes = [ctypes.c_int]
+        bind(lib)
         lib._eld_bound = True
     return lib
 
@@ -87,6 +94,25 @@ def _check(clean: torch.Tensor, params: NoiseParams):
             raise ValueError(f"params.{name} has {t.shape[0]} rows for a batch of {clean.shape[0]}")
 
 
+def launch(lib: ctypes.CDLL, seed: int, clean: torch.Tensor, params: NoiseParams,
+           model: str, clip: bool) -> torch.Tensor:
+    """One launch of ``lib``'s kernel on a CUDA tensor, on the current
+    stream; raises if the launch fails.  Counts nothing: the count belongs
+    to ``synthesize_kernel``, the entry point of the port."""
+    flags = model_flags(model)
+    n, h, w, c = clean.shape
+    out = torch.empty_like(clean)
+    packed = pack_params(params, n)
+    with torch.cuda.device(clean.device):
+        stream = torch.cuda.current_stream(clean.device).cuda_stream
+        rc = lib.eld_noise_synth(clean.data_ptr(), out.data_ptr(), packed.data_ptr(),
+                                 n, h, w, c, flags, int(bool(clip)), int(seed) & _MASK64, stream)
+    if rc != 0:
+        raise RuntimeError(f"noise_synth kernel launch failed: "
+                           f"{lib.eld_cuda_error_string(rc).decode()} ({rc})")
+    return out
+
+
 def synthesize_kernel(seed: int, clean: torch.Tensor, params: NoiseParams,
                       model: str = "PGrqc", clip: bool = True) -> torch.Tensor:
     """Fused noise synthesis: clean (N, H, W, C) f32 + params (N,) -> noisy.
@@ -102,18 +128,7 @@ def synthesize_kernel(seed: int, clean: torch.Tensor, params: NoiseParams,
         return synthesize(gen, clean, params, model=model, clip=clip)
     if clean.device.type != "cuda":
         raise ValueError(f"no noise kernel for device {clean.device}")
-    flags = model_flags(model)
-    lib = load_library()
-    n, h, w, c = clean.shape
-    out = torch.empty_like(clean)
-    packed = pack_params(params, n)
-    with torch.cuda.device(clean.device):
-        stream = torch.cuda.current_stream(clean.device).cuda_stream
-        rc = lib.eld_noise_synth(clean.data_ptr(), out.data_ptr(), packed.data_ptr(),
-                                 n, h, w, c, flags, int(bool(clip)), seed, stream)
-    if rc != 0:
-        raise RuntimeError(f"noise_synth kernel launch failed: "
-                           f"{lib.eld_cuda_error_string(rc).decode()} ({rc})")
+    out = launch(load_library(), seed, clean, params, model, clip)
     synthesize_kernel.launches += 1
     return out
 

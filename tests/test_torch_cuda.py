@@ -1,5 +1,5 @@
-"""The port's pooled trainer and eval forward on the card (marked ``cuda``;
-skipped where there is none).
+"""The port's noise kernel, pooled trainer and eval forward on the card
+(marked ``cuda``; skipped where there is none).
 
 This file imports neither JAX nor eld_tpu, so it runs on a machine that
 has the card and torch but not the JAX package's dependencies:
@@ -17,7 +17,9 @@ from eld_tpu_torch.config import Config
 from eld_tpu_torch.data.loader import pool_to_device
 from eld_tpu_torch.data.patchstore import PatchStore, PatchStoreWriter
 from eld_tpu_torch.models import build_arch
-from eld_tpu_torch.noise.kernels import synthesize_kernel
+from eld_tpu_torch.noise.kernels import kernel_draws, synthesize_kernel
+from eld_tpu_torch.noise.model import noise_core
+from eld_tpu_torch.noise.params import load_camera_params, sample_params_batch
 from eld_tpu_torch.train.engine import Engine
 from eld_tpu_torch.train.steps import make_eval_forward
 
@@ -29,6 +31,77 @@ def cuda_device():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+def _batch(device, shape, seed=0):
+    bank = load_camera_params(include=4, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    clean = torch.rand(shape, generator=gen, device=device)
+    return clean, sample_params_batch(gen, bank, shape[0])
+
+
+MODELS = ["g", "p", "pg", "Pg", "G", "r", "q", "c", "eld", "Pgrqc"]
+# the test shape; ragged (odd H and W); one pixel per row; 9 channels;
+# rows wider than a block (several pixels per thread)
+SHAPES = [(2, 64, 48, 4), (3, 37, 53, 4), (2, 5, 1, 4), (2, 33, 31, 9), (1, 3, 1100, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("model", MODELS)
+def test_kernel_equals_core_on_its_draws(cuda_device, model, shape):
+    """The kernel equals noise_core fed the kernel's own draws: the same
+    IEEE f32 operations in the same order (atol 1e-5; 0 expected)."""
+    clean, p = _batch(cuda_device, shape)
+    out = synthesize_kernel(99, clean, p, model, clip=False)
+    ref = noise_core(clean, p, model, kernel_draws(99, clean.shape, model, cuda_device))
+    assert float((out - ref).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_kernel_misaligned_batch_gives_the_same_output(cuda_device):
+    """A C = 4 batch that does not start on 16 bytes takes the kernel's
+    scalar path: bit-identical to the aligned (float4) path."""
+    clean, p = _batch(cuda_device, (2, 37, 53, 4))
+    buf = torch.empty(clean.numel() + 1, device=cuda_device)
+    shifted = buf[1:].view(clean.shape)
+    shifted.copy_(clean)
+    assert shifted.data_ptr() % 16 != 0
+    for model in ("eld", "Pg"):
+        a = synthesize_kernel(5, clean, p, model)
+        b = synthesize_kernel(5, shifted, p, model)
+        assert torch.equal(a, b), model
+
+
+@pytest.mark.cuda
+def test_kernel_counts_launches_and_distinct_seeds(cuda_device):
+    clean, p = _batch(cuda_device, (2, 32, 32, 9))
+    before = synthesize_kernel.launches
+    a = synthesize_kernel(1, clean, p, "eld", clip=False)
+    b = synthesize_kernel(2, clean, p, "eld", clip=False)
+    assert synthesize_kernel.launches == before + 2
+    assert float((a == b).float().mean()) < 1e-3
+    assert bool(torch.isfinite(a).all())
+
+
+@pytest.mark.cuda
+def test_kernel_row_structure_and_clip_on_a_ragged_shape(cuda_device):
+    """Model 'r' on a constant ragged batch: the noise is constant along
+    each packed row, channels (0, 1) share the even draw and (2, 3) the odd
+    one; with the full model, clip=True stays in [0, 1] while clip=False
+    keeps the noise floor below 0."""
+    shape = (3, 37, 53, 4)
+    _, p = _batch(cuda_device, shape)
+    half = torch.full(shape, 0.5, device=cuda_device)
+    e = synthesize_kernel(3, half, p, "r", clip=False) - half
+    assert bool((e == e[:, :, :1, :]).all())
+    assert bool((e[..., 0] == e[..., 1]).all() and (e[..., 2] == e[..., 3]).all())
+    assert float((e[..., 0] == e[..., 2]).float().mean()) < 0.05
+    dark = torch.zeros(shape, device=cuda_device)
+    clipped = synthesize_kernel(5, dark, p, "eld", clip=True)
+    raw = synthesize_kernel(5, dark, p, "eld", clip=False)
+    assert float(clipped.min()) >= 0 and float(clipped.max()) <= 1
+    assert float(raw.min()) < 0
 
 
 @pytest.mark.cuda

@@ -6,8 +6,9 @@
 * Random parts agree in distribution: torch's generators and JAX's
   threefry give different bits by design.
 * The CUDA kernel's module imports without nvcc and sends CPU tensors to
-  its plain version; the kernel itself is checked on the card (tests
-  marked ``cuda``, and chip_smoke.py).
+  its plain version, and its recomputed draws keep the kernel's stream
+  layout; the kernel itself is checked on the card
+  (tests/test_torch_cuda.py, and chip_smoke.py).
 """
 
 import math
@@ -352,38 +353,54 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(sony):
     assert kernels.model_flags("eld") == kernels.model_flags("PGrqc") == 1 | 8 | 16 | 32 | 64
 
 
-# ---- on the card --------------------------------------------------------
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the kernel has no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("model", ["g", "pg", "Pg", "eld", "Pgrqc"])
-def test_kernel_equals_core_on_its_draws(cuda_device, model):
-    """The kernel equals noise_core fed the kernel's own draws: the same
-    IEEE f32 operations in the same order (atol 1e-5)."""
-    bank = load_camera_params(include=4, device=cuda_device)
-    gen = torch.Generator(device=cuda_device).manual_seed(0)
-    clean = torch.rand((2, 64, 48, 4), generator=gen, device=cuda_device)
-    p = sample_params_batch(gen, bank, 2)
-    out = kernels.synthesize_kernel(99, clean, p, model, clip=False)
-    ref = noise_core(clean, p, model, kernels.kernel_draws(99, clean.shape, model, cuda_device))
-    assert float((out - ref).abs().max()) <= 1e-5
+def _philox_by_hand(ctr, key):
+    """Philox4x32-10 on Python ints (Random123's round and key schedule)."""
+    c0, c1, c2, c3 = ctr
+    k0, k1 = key
+    for _ in range(10):
+        p0, p1 = 0xD2511F53 * c0, 0xCD9E8D57 * c2
+        c0, c1, c2, c3 = ((p1 >> 32) ^ c1 ^ k0, p1 & 0xFFFFFFFF,
+                          (p0 >> 32) ^ c3 ^ k1, p0 & 0xFFFFFFFF)
+        k0, k1 = (k0 + 0x9E3779B9) & 0xFFFFFFFF, (k1 + 0xBB67AE85) & 0xFFFFFFFF
+    return c0, c1, c2, c3
 
 
-@pytest.mark.cuda
-def test_kernel_counts_launches_and_distinct_seeds(cuda_device):
-    bank = load_camera_params(include=4, device=cuda_device)
-    gen = torch.Generator(device=cuda_device).manual_seed(0)
-    clean = torch.rand((2, 32, 32, 9), generator=gen, device=cuda_device)
-    p = sample_params_batch(gen, bank, 2)
-    before = kernels.synthesize_kernel.launches
-    a = kernels.synthesize_kernel(1, clean, p, "eld", clip=False)
-    b = kernels.synthesize_kernel(2, clean, p, "eld", clip=False)
-    assert kernels.synthesize_kernel.launches == before + 2
-    assert float((a == b).float().mean()) < 1e-3
-    assert math.isfinite(float(a.sum()))
+@pytest.mark.parametrize("shape", [(3, 37, 53, 9), (2, 5, 7, 4)])
+def test_kernel_draws_keep_the_stream_layout(shape):
+    """The stream contract the CUDA kernel keeps, pinned element by element:
+    key (seed lo, seed hi); the element at (n, h, w, ch) draws stream 0 (and
+    stream 1 for 'g' under 'P') at counter flat_index = ((n*H + h)*W + w)*C
+    + ch; row (n, h) draws stream 2 at counter n*H + h, its (even, odd) pair
+    the cosine and sine legs of the first two uniforms.  Uniforms are equal
+    exactly; the normals within 1e-6 (torch's f32 log/cos/sin against float64)."""
+    seed = 0x0123_4567_89AB_CDEF
+    key = (seed & 0xFFFFFFFF, seed >> 32)
+    n_, h_, w_, c_ = shape
+    d = kernels.kernel_draws(seed, shape, "PGgrq")
+    u01 = lambda x: onp.float32(x >> 8) * onp.float32(2.0 ** -24)  # noqa: E731
+
+    def legs(x, y):  # in float64, the angle rounded to f32 as the kernel rounds it
+        r = math.sqrt(-2.0 * math.log(max(u01(x), onp.float32(1e-7))))
+        th = float(onp.float32(6.283185307179586) * u01(y))
+        return r * math.cos(th), r * math.sin(th)
+
+    rng = onp.random.default_rng(0)
+    picks = [tuple(int(rng.integers(0, m)) for m in shape) for _ in range(24)]
+    picks += [(0, 0, 0, 0), (n_ - 1, h_ - 1, w_ - 1, c_ - 1)]
+    for n, h, w, ch in picks:
+        flat = ((n * h_ + h) * w_ + w) * c_ + ch
+        a = _philox_by_hand((flat & 0xFFFFFFFF, flat >> 32, 0, 0), key)
+        b = _philox_by_hand((flat & 0xFFFFFFFF, flat >> 32, 1, 0), key)
+        at = (n, h, w, ch)
+        assert float(d["poisson_u"][at]) == max(u01(a[0]), 1e-12)
+        assert float(d["tukey_u"][at]) == min(max(u01(a[2]), onp.float32(1e-7)),
+                                              onp.float32(0.9999999))
+        assert float(d["quant_u"][at]) == u01(a[3]) - onp.float32(0.5)
+        assert abs(float(d["shot_n"][at]) - legs(a[0], a[1])[0]) < 1e-6
+        assert abs(float(d["read_n"][at]) - legs(b[0], b[1])[0]) < 1e-6
+    for n in range(n_):
+        for h in range(h_):
+            r = _philox_by_hand((n * h_ + h, 0, 2, 0), key)
+            even, odd = legs(r[0], r[1])
+            assert abs(float(d["row_n"][n, h, 0]) - even) < 1e-6
+            assert abs(float(d["row_n"][n, h, 1]) - odd) < 1e-6
