@@ -11,12 +11,14 @@ Phases, one line or block of output each; any failure exits non-zero:
      Philox generator against the Random123 known answer;
   2. the kernel against its plain PyTorch version: exact against
      noise_core fed the kernel's own draws for ten models at the slice's
-     shape (8, 512, 512, 4), a ragged, a one-pixel-wide, a 9-channel
-     and a 1100-pixel-wide shape; per-image moments, Poisson histograms,
-     row structure, seeds, range at the slice's shape; its registers and
+     shape (8, 512, 512, 4), a ragged, a one-pixel-wide, a 9-channel, a
+     1100-pixel-wide, the sRGB stage's (8, 512, 512, 3) and a ragged
+     1-channel shape; per-image moments, Poisson histograms, row
+     structure, seeds, range at the slice's shape; its registers and
      spills (nvcc -Xptxas -v); on uniform and on smooth input, the
      wrapper's time (as in earlier runs) and the kernel's alone (CUDA
-     events), and its bound from the bytes and the f32 operations;
+     events), and its bound from the bytes and the f32 operations; the
+     kernel alone at C = 3;
   3. the slice: eld_tpu_torch.tools.train_syn.main over a PatchStore of 32
      smooth 512x512x4 patches, --noise eld --include 4 -b 8 --bf16 --scan 0
      (the per-step loader), 3 epochs = 12 optimizer steps through the
@@ -31,6 +33,23 @@ Phases, one line or block of output each; any failure exits non-zero:
      chop, unet and unet_s2d), test_sid on the card against the CPU over
      SID-geometry rawpacks, test_eld full-frame with --chop, and
      full-frame eval-forward times;
+  6. the serving path and paired / sRGB training at full width, unet on
+     full SID frames (1424x2128x4 packed): (a) the ISP (process, raw2rgb;
+     gamma and the CRF) on the card against the CPU, and its ms; (b)
+     export_model from phase 4's .pt (f32, int8, f32 --chop), each
+     artifact on the card against the eager forward, the int8 denoised
+     PSNR within 0.05 dB of f32 and the int8 output against the f32 output
+     (at least 40 dB), export seconds and sizes; (c) denoise --batch 2
+     --io_threads 2 over two DNG and two rawpack full frames from the .pt
+     and the f32 and int8 artifacts, then over 32 frames (those four linked
+     eight times each; frames/s without the network's load, the device's
+     idle share under torch.profiler), the host's decode, PNG and npz write
+     ms per frame, --save_raw, two frames against --device cpu; (d) test_sid --stage_eval srgb --crf on the
+     card against the CPU; (e) the builder's paired, clean, syn and sRGB
+     stores from SID-named full frames, then one epoch at batch 8 of
+     train_real, train_syn --offline_noise (--scan auto: 10) and train_syn
+     --stage_in/--stage_out srgb (--scan auto: 0; the kernel at C = 3, one
+     launch per step);
 and prints the kernels' JSON line, the card line, and a last JSON line
 {"ok": true, "device": {...}}.  It imports nothing of JAX.
 """
@@ -50,9 +69,12 @@ SLICE_SHAPE = (8, 512, 512, 4)
 SEED = 2018
 # every component alone, the two shot/read pairs, the full model and its alias
 MODELS = ("g", "p", "pg", "Pg", "G", "r", "q", "c", "eld", "Pgrqc")
+SRGB_SHAPE = (8, 512, 512, 3)  # the sRGB training stage's batches
 # the slice's shape; ragged (odd H and W); one pixel per row; 9 channels;
-# rows wider than a block (several pixels per thread)
-KERNEL_SHAPES = (SLICE_SHAPE, (3, 37, 53, 4), (2, 5, 1, 4), (2, 33, 31, 9), (1, 3, 1100, 4))
+# rows wider than a block (several pixels per thread); the sRGB stage's
+# 3 channels; one ragged channel
+KERNEL_SHAPES = (SLICE_SHAPE, (3, 37, 53, 4), (2, 5, 1, 4), (2, 33, 31, 9), (1, 3, 1100, 4),
+                 SRGB_SHAPE, (3, 37, 53, 1))
 H100_BYTES_PER_S = 3.35e12  # HBM3 of the H100 SXM
 H100_F32_OPS_PER_S = 67e12  # float32 outside the tensor cores, H100 SXM
 
@@ -313,13 +335,21 @@ def phase2(card):
                                                                 ("smooth", smooth))}
     bound_ms = max(bytes_ms, ops_ms["uniform"])
     bound_by = "bytes" if bytes_ms >= ops_ms["uniform"] else "operations"
+    # C = 3 (the sRGB stage): the kernel's scalar path, on uniform input
+    g3 = torch.Generator(device=dev).manual_seed(SEED + 2)
+    clean3 = torch.rand(SRGB_SHAPE, generator=g3, device=dev)
+    t["kernel_ms_c3"] = cuda_ms(kernel_only(lib, 9, clean3, params, "eld", True), spin=True)
+    bound_c3 = max(_noise_bytes_ms(SRGB_SHAPE), _noise_ops_ms(9, clean3, params))
     print(f"[2g] eld {tuple(SLICE_SHAPE)} (median of 20, CUDA events): wrapper "
           f"{t['ms']:.4f} ms on uniform input, {t['ms_smooth']:.4f} ms on smooth patches; "
           f"kernel alone {t['kernel_ms']:.4f} / {t['kernel_ms_smooth']:.4f} ms; plain "
           f"{t['plain_ms']:.4f} ms; bound by bytes {bytes_ms:.4f} ms, by f32 operations "
           f"{ops_ms['uniform']:.4f} / {ops_ms['smooth']:.4f} ms; on {card}", flush=True)
+    print(f"[2g] eld {SRGB_SHAPE} (C = 3, scalar path): kernel alone {t['kernel_ms_c3']:.4f} "
+          f"ms on uniform input; bound {bound_c3:.4f} ms (bytes "
+          f"{_noise_bytes_ms(SRGB_SHAPE):.4f}) on {card}", flush=True)
     return {"max_abs_err": max_err, **t, "bound_ms": bound_ms, "bound_by": bound_by,
-            "ops_ms": ops_ms["uniform"]}
+            "ops_ms": ops_ms["uniform"], "bound_ms_c3": bound_c3}
 
 
 def _noise_bytes_ms(shape) -> float:
@@ -331,10 +361,11 @@ def _noise_bytes_ms(shape) -> float:
 
 
 def _noise_ops_ms(seed, clean, params) -> float:
-    """K1's time by f32 operations for model 'eld' (PGrqc, C = 4, clip on)
-    on this input and seed, at the H100's float32 peak.  Each IEEE
-    operation, min/max, compare, int-to-float conversion and transcendental
-    in noise_synth.cu counts once: 31 per element outside the shot draw,
+    """K1's time by f32 operations for model 'eld' (PGrqc, clip on) on this
+    input and seed, at the H100's float32 peak.  Each IEEE operation,
+    min/max, compare, int-to-float conversion and transcendental in
+    noise_synth.cu counts once: 31 per element outside the shot draw (30
+    where C != 4, which adds no color bias),
     then per element either the small-lam Poisson step (4, plus 6 per loop
     term; the loop runs once per count) or the large-lam Box-Muller branch
     (14).  The Philox generator's integer work has no rate in that table
@@ -350,7 +381,9 @@ def _noise_ops_ms(seed, clean, params) -> float:
     lam = torch.clamp_min(y / params.K.reshape(n, 1, 1, 1), 0.0)
     small = lam <= SMALL_MAX
     counts = poisson_small_from_uniform(lam * small, draws["poisson_u"])
-    ops = 31 * lam.numel() + float((4 + 6 * counts)[small].sum()) + 14 * int((~small).sum())
+    per_element = 31 if clean.shape[-1] == 4 else 30
+    ops = (per_element * lam.numel() + float((4 + 6 * counts)[small].sum())
+           + 14 * int((~small).sum()))
     return ops / H100_F32_OPS_PER_S * 1e3
 
 
@@ -663,6 +696,8 @@ def _write_rawpack(path, mosaic, iso, exposure):
 
 
 def phase5(card, tmp, engines):
+    """The eval stack; returns the SID-geometry rawpacks, their pair list
+    and phase 4's unet checkpoint for phase 6."""
     import copy
 
     import numpy as np
@@ -756,6 +791,400 @@ def phase5(card, tmp, engines):
     print("[5d] full-frame (1, 1424, 2128, 4) unet eval forward ms (median of 5, CUDA "
           "events): " + ", ".join(f"{d} {c} {ms:.2f}" for (d, c), ms in times.items()) +
           f" on {card}", flush=True)
+    return {"sid": sid, "pairs": pairs_file, "ckpt": ckpt}
+
+
+# ---- phase 6 ------------------------------------------------------------
+
+FULL_FRAME = (1424, 2128)  # SID Sony, packed
+FULL_MOSAIC = (2 * FULL_FRAME[0], 2 * FULL_FRAME[1])
+# a camera -> sRGB matrix as DNG files give it (the fixture's, rounded)
+CCM = ((3.08, -1.537, -0.543), (-0.921, 1.876, 0.045), (0.053, -0.204, 1.151))
+INT8_VS_F32_DB = 40.0  # floor of PSNR(int8 artifact's output, f32 artifact's output)
+LONG_FRAMES = 32  # the steady-state serving run: the four inputs linked 8 times each
+
+
+def _codes_close(got, ref, what):
+    """8-bit renders in [0, 1]: codes equal except at most 0.1% of values,
+    which differ by one (a value within an ulp of a code boundary); returns
+    the share that differs."""
+    import numpy as np
+
+    codes = np.rint((np.asarray(got, np.float64) - np.asarray(ref, np.float64)) * 255)
+    share = float((codes != 0).mean())
+    check(np.abs(codes).max() <= 1 and share <= 1e-3,
+          f"{what}: codes differ by up to {np.abs(codes).max()} on {share:.3%}")
+    return share
+
+
+def _png_codes_close(a, b, what):
+    import numpy as np
+
+    from eld_tpu_torch.utils.images import load_png
+
+    return _codes_close(load_png(a).astype(np.float64) / 255, load_png(b) / 255.0, what)
+
+
+def phase6a(card):
+    """The ISP on a full frame on the card against the CPU, gamma and CRF."""
+    import numpy as np
+    import torch
+
+    from eld_tpu_torch.core import emor, isp
+
+    rng = np.random.default_rng(SEED + 2)
+    frames = torch.from_numpy(rng.random((2, *FULL_FRAME, 4), dtype=np.float32))
+    wb = torch.tensor([[2.0, 1.0, 1.6, 1.0], [1.8, 1.0, 2.1, 1.0]])
+    ccm = torch.tensor(CCM).expand(2, 3, 3)
+    crf_cpu = emor.load_crf()
+    crf_card = tuple(torch.from_numpy(a).cuda() for a in crf_cpu)
+    times = {}
+    for render, crf, crf_dev in (("gamma", None, None), ("crf", crf_cpu, crf_card)):
+        cpu = isp.process(frames, wb, ccm, crf=crf)
+        got = isp.process(frames.cuda(), wb.cuda(), ccm.cuda(), crf=crf_dev).cpu()
+        share = _codes_close(got, cpu, f"ISP process {render}")
+        one_cpu = isp.raw2rgb(frames[0], wb[0] * 512, CCM, crf=crf)
+        x = frames[0].cuda()
+        one = isp.raw2rgb(x, wb[0] * 512, CCM, crf=crf_dev).cpu()
+        share_one = _codes_close(one, one_cpu, f"ISP raw2rgb {render}")
+        times[render] = cuda_ms(lambda: isp.raw2rgb(x, wb[0], CCM, crf=crf_dev), reps=10)
+        print(f"[6a] ISP {render} {(2, *FULL_FRAME, 4)} and one frame: card == CPU but "
+              f"{share:.4%} / {share_one:.4%} of 8-bit codes, each by one", flush=True)
+    print(f"[6a] raw2rgb full frame {(*FULL_FRAME, 4)} ms (median of 10, CUDA events): gamma "
+          f"{times['gamma']:.3f}, crf {times['crf']:.3f} on {card}", flush=True)
+    return times
+
+
+def _noisy_frame(seed):
+    """A smooth full frame in [0, 1] and its ELD-noised copy on the card
+    (SonyA7S2 parameters), for the artifact checks."""
+    import numpy as np
+    import torch
+
+    from eld_tpu_torch.noise.kernels import synthesize_kernel
+    from eld_tpu_torch.noise.params import load_camera_params, sample_params_batch
+
+    rng = np.random.default_rng(seed)
+    planes = [(_smooth_mosaic(FULL_FRAME, rng).astype(np.float32) - 2048) / 14000
+              for _ in range(4)]
+    clean = torch.from_numpy(np.stack(planes, -1)[None]).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = sample_params_batch(gen, load_camera_params(include=4, device="cuda"), 1)
+    return clean, synthesize_kernel(seed, clean.contiguous(), params, "eld", clip=True)
+
+
+def phase6b(card, tmp, ckpt):
+    """export_model at full frame (f32, int8, f32 --chop), each artifact on
+    the card against the eager forward; the int8 PSNR gate."""
+    import torch
+
+    from eld_tpu_torch import export
+    from eld_tpu_torch.models import build_arch
+    from eld_tpu_torch.ops.metrics import psnr
+    from eld_tpu_torch.tools import export_model
+    from eld_tpu_torch.train.checkpoints import load_params
+    from eld_tpu_torch.train.steps import make_eval_forward
+
+    h, w = FULL_FRAME
+    arts = {}
+    for tag, extra in (("f32", []), ("int8", ["--quantize", "int8"]), ("chop", ["--chop"])):
+        path = os.path.join(tmp, f"unet_{tag}.eldx")
+        t0 = time.perf_counter()
+        export_model.main(["--model_path", ckpt, "--height", str(h), "--width", str(w),
+                           "--device", "cuda", "--out", path] + extra)
+        arts[tag] = {"path": path, "export_s": time.perf_counter() - t0,
+                     "mb": os.path.getsize(path) / 1e6}
+    model = build_arch("unet", 4, 4, base_width=32, skip_mode="split").cuda()
+    model = model.to(memory_format=torch.channels_last)
+    load_params(ckpt, model)
+    model.eval()
+    clean, noisy = _noisy_frame(SEED + 3)
+    eager = {"f32": make_eval_forward(model), "chop": make_eval_forward(model, chop=True),
+             "int8": export.serving_module(model, quantize="int8")}
+    outs = {}
+    for tag, art in arts.items():
+        fn, meta = export.load_denoiser(art["path"], "cuda")
+        check(meta["quantize"] == ("int8" if tag == "int8" else None)
+              and meta["chop"] == (tag == "chop"), f"artifact {tag} meta {meta}")
+        with torch.no_grad():
+            want = eager[tag](noisy)
+        outs[tag] = fn(noisy)
+        err = float((outs[tag] - want).abs().max())
+        check(outs[tag].shape == noisy.shape and err <= 1e-4,
+              f"artifact {tag} vs the eager forward: max |err| {err}")
+        art["err"] = err
+        art["ms"] = cuda_ms(lambda: fn(noisy), reps=5)
+        art["eager_ms"] = cuda_ms(lambda: eager[tag](noisy), reps=5)
+        print(f"[6b] export_model {tag}: {art['export_s']:.2f} s, {art['mb']:.2f} MB; on the "
+              f"card == eager forward within {err:.3g} (tol 1e-4); forward ms (median of 5, "
+              f"CUDA events) artifact {art['ms']:.2f}, eager {art['eager_ms']:.2f}", flush=True)
+    db = {tag: float(psnr(outs[tag].clamp(0, 1), clean, 1.0)) for tag in ("f32", "int8")}
+    delta = abs(db["f32"] - db["int8"])
+    check(delta <= 0.05, f"int8 denoised PSNR {db['int8']:.4f} vs f32 {db['f32']:.4f} dB")
+    # phase 4's network barely denoises, so the delta above cannot show
+    # quantization harm; the int8 output against the f32 output can: 40 dB
+    # is an RMS difference of 1% of full scale
+    vs_f32 = float(psnr(outs["int8"].clamp(0, 1), outs["f32"].clamp(0, 1), 1.0))
+    diff = float((outs["int8"] - outs["f32"]).abs().max())
+    check(vs_f32 >= INT8_VS_F32_DB, f"int8 artifact vs f32 artifact: {vs_f32:.2f} dB "
+          f"(floor {INT8_VS_F32_DB}), max |diff| {diff}")
+    noisy_db = float(psnr(noisy.clamp(0, 1), clean, 1.0))
+    print(f"[6b] on an ELD-noised full frame (noisy input {noisy_db:.4f} dB): denoised PSNR f32 "
+          f"{db['f32']:.4f} dB, int8 {db['int8']:.4f} dB, delta {delta:.4f} dB (gate 0.05); "
+          f"int8 output vs f32 output {vs_f32:.2f} dB (floor {INT8_VS_F32_DB}), max |diff| "
+          f"{diff:.3g}; on {card}", flush=True)
+    return arts, {"psnr_delta_db": delta, "psnr_f32_db": db["f32"], "psnr_int8_db": db["int8"],
+                  "psnr_noisy_db": noisy_db, "int8_vs_f32_db": vs_f32, "int8_vs_f32_max": diff}
+
+
+def _device_busy_ms(prof):
+    """Device time summed over a torch.profiler run's events (one stream,
+    so no overlap); None where the profiler recorded none."""
+    total = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+                for e in prof.key_averages())
+    return total / 1e3 if total > 0 else None
+
+
+def _median_s(fn, reps=3):
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[len(times) // 2]
+
+
+def phase6c(card, tmp, ckpt, arts):
+    """denoise over four full-frame raws (two DNG, two rawpacks) from the
+    .pt and the artifacts, then over LONG_FRAMES of them (the steady state,
+    device idle under torch.profiler); the host's decode and write times per
+    frame; two frames against the CPU."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from eld_tpu_torch import export
+    from eld_tpu_torch.data import rawio
+    from eld_tpu_torch.models import build_arch
+    from eld_tpu_torch.tools import denoise
+    from eld_tpu_torch.train.checkpoints import load_params
+    from eld_tpu_torch.utils.images import load_png, save_png
+    from tests.tiff_fixture import make_dng
+
+    rng = np.random.default_rng(SEED + 4)
+    inputs = os.path.join(tmp, "serve")
+    pair = os.path.join(tmp, "serve_pair")
+    long_dir = os.path.join(tmp, "serve_long")
+    for d in (inputs, pair, long_dir):
+        os.makedirs(d)
+    for i in range(4):
+        gt = _smooth_mosaic(FULL_MOSAIC, rng)
+        dark = (512 + (gt.astype(np.float32) - 512) / 100).astype(np.uint16)
+        if i < 2:
+            path = os.path.join(inputs, f"IMG_{i:04d}.dng")
+            data = make_dng(dark, iso=100, exposure=0.1)
+            for d in (inputs, pair):
+                with open(os.path.join(d, os.path.basename(path)), "wb") as f:
+                    f.write(data)
+        else:
+            _write_rawpack(os.path.join(inputs, f"IMG_{i:04d}.npz"), dark, 100, 0.1)
+    names = sorted(os.listdir(inputs))
+    for k in range(LONG_FRAMES):
+        ext = os.path.splitext(names[k % 4])[1]
+        os.link(os.path.join(inputs, names[k % 4]), os.path.join(long_dir, f"IMG_{k:04d}{ext}"))
+    decode = []
+    for fn in names:
+        t0 = time.perf_counter()
+        rawio.imread(os.path.join(inputs, fn)).packed()
+        decode.append((time.perf_counter() - t0) * 1e3)
+
+    def run(tag, source, extra=(), device="cuda", directory=inputs):
+        out = os.path.join(tmp, f"denoised_{tag}")
+        argv = ["--input", directory, "--ratio", "100", "--batch", "2", "--io_threads", "2",
+                "--device", device, "--out", out, *source, *extra]
+        t0 = time.perf_counter()
+        res = denoise.main(argv)
+        wall = time.perf_counter() - t0
+        check(len(res) == len(os.listdir(directory)), f"denoise {tag}: {len(res)} records")
+        return res, wall
+
+    sources = {"pt": ["--model_path", ckpt], "f32": ["--artifact", arts["f32"]["path"]],
+               "int8": ["--artifact", arts["int8"]["path"]]}
+    # the network's load, timed apart: the CLI's wall holds it once a run
+    load_s = {}
+    for tag in ("f32", "int8"):
+        t0 = time.perf_counter()
+        export.load_denoiser(arts[tag]["path"], "cuda")
+        load_s[tag] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    load_params(ckpt, build_arch("unet", 4, 4, base_width=32, skip_mode="split").cuda())
+    load_s["pt"] = time.perf_counter() - t0
+    fps, fps_long = {}, {}
+    for tag, source in sources.items():
+        _, wall = run(tag, source)
+        fps[tag] = 4 / wall
+    for tag, source in sources.items():
+        _, wall = run(f"long_{tag}", source, directory=long_dir)
+        fps_long[tag] = LONG_FRAMES / (wall - load_s[tag])
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, wall = run("profiled", sources["pt"], directory=long_dir)
+        torch.cuda.synchronize()
+    busy = _device_busy_ms(prof)
+    idle = "not measured" if busy is None else f"{1 - busy / (wall * 1e3):.1%}"
+    print(f"[6c] denoise --batch 2 --io_threads 2 on {card}: 4 full frames (2 DNG, 2 rawpacks, "
+          f"pipeline fill and drain, load included): " +
+          ", ".join(f"{t} {fps[t]:.2f}" for t in sources) + f" frames/s; {LONG_FRAMES} frames "
+          f"(the 4 linked {LONG_FRAMES // 4} times), without the network's load: " +
+          ", ".join(f"{t} {fps_long[t]:.2f} frames/s (load {load_s[t]:.2f} s)" for t in sources) +
+          f"; .pt over {LONG_FRAMES} frames under torch.profiler: {wall:.2f} s wall "
+          f"(load included), device busy "
+          f"{'not measured' if busy is None else f'{busy:.1f} ms'}, idle {idle}", flush=True)
+
+    saved = {tag: run(f"raw_{tag}", sources[tag], ["--save_raw"])[0] for tag in ("pt", "f32")}
+    # the host's work per frame, one thread, median of 3: a frame's PNG as
+    # denoise hands it to save_png, and its .npz
+    rec = saved["pt"][0]
+    rgb = load_png(rec["output"]).astype(np.float32)
+    npz = dict(np.load(rec["raw_output"]))
+    png_ms = _median_s(lambda: save_png(os.path.join(tmp, "t.png"), rgb)) * 1e3
+    npz_ms = _median_s(lambda: np.savez_compressed(os.path.join(tmp, "t.npz"), **npz)) * 1e3
+    print(f"[6c] host per full frame, one thread: decode {np.mean(decode):.1f} ms (mean of 4), "
+          f"PNG write {png_ms:.1f} ms, npz write {npz_ms:.1f} ms (median of 3) on {card}",
+          flush=True)
+    cpu, cpu_wall = run("cpu", sources["pt"], ["--save_raw"], device="cpu", directory=pair)
+    by_input = {os.path.basename(r["input"]): r for r in saved["pt"]}
+    worst = {"npz": 0.0, "png": 0.0}
+    for rec in cpu:
+        card_rec = by_input[os.path.basename(rec["input"])]
+        a, b = np.load(card_rec["raw_output"])["packed"], np.load(rec["raw_output"])["packed"]
+        err = float(np.abs(a - b).max())
+        check(np.isfinite(a).all() and err <= 1e-4, f"denoise card vs CPU npz: {err}")
+        worst["npz"] = max(worst["npz"], err)
+        worst["png"] = max(worst["png"], _png_codes_close(card_rec["output"], rec["output"],
+                                                          "denoise card vs CPU PNG"))
+    for a, b in zip(saved["pt"], saved["f32"]):
+        err = float(np.abs(np.load(a["raw_output"])["packed"]
+                           - np.load(b["raw_output"])["packed"]).max())
+        check(err <= 1e-4, f"denoise .pt vs f32 artifact npz: {err}")
+    print(f"[6c] card vs CPU ({cpu_wall:.2f} s on the CPU for 2 frames): npz within "
+          f"{worst['npz']:.3g} (tol 1e-4), PNG codes differ on {worst['png']:.4%} (<= 0.1%, by "
+          f"one); .pt == f32 artifact within 1e-4 on the card", flush=True)
+    return {"frames_per_s_4": fps, "frames_per_s_long_without_load": fps_long,
+            "long_frames": LONG_FRAMES, "load_s": load_s, "device_busy_ms_long": busy,
+            "profiled_wall_s_long": wall, "decode_ms_per_frame": float(np.mean(decode)),
+            "png_write_ms_per_frame": png_ms, "npz_write_ms_per_frame": npz_ms}
+
+
+def phase6d(card, tmp, p5):
+    """test_sid --stage_eval srgb --crf on the card against the CPU."""
+    from eld_tpu_torch.tools import test_sid
+
+    results = {}
+    for device in ("cuda", "cpu"):
+        results[device] = test_sid.main([
+            "--datadir", p5["sid"], "--pairs", p5["pairs"], "--model_path", p5["ckpt"],
+            "--device", device, "--stage_eval", "srgb", "--crf", "--checkpoints_dir",
+            os.path.join(tmp, "ck_srgb"), "--no-log", "--no-verbose"])
+    for ratio in (100, 300):
+        got, want = results["cuda"][ratio], results["cpu"][ratio]
+        check(all(math.isfinite(v) for v in got.values()), f"sRGB test_sid {ratio}: {got}")
+        dpsnr = max(abs(got[k] - want[k]) for k in ("PSNR", "PSNR_in"))
+        dssim = max(abs(got[k] - want[k]) for k in ("SSIM", "SSIM_in"))
+        check(dpsnr <= 0.01 and dssim <= 1e-4,
+              f"sRGB test_sid ratio {ratio}: card vs CPU |dPSNR| {dpsnr}, |dSSIM| {dssim}")
+        print(f"[6d] test_sid --stage_eval srgb --crf ratio {ratio}: " +
+              ", ".join(f"{k} {v:.4f}" for k, v in sorted(got.items())) +
+              f"; card == CPU within {dpsnr:.3g} dB, {dssim:.3g} SSIM (tol 0.01 / 1e-4)",
+              flush=True)
+
+
+def phase6e(card, tmp):
+    """The builder's paired, clean, syn and sRGB stores from SID-named full
+    frames, then train_real, train_syn --offline_noise and the sRGB stage,
+    one epoch each at batch 8 on the card."""
+    import numpy as np
+
+    from eld_tpu_torch.data import builder
+    from eld_tpu_torch.data.pairs import sid_pairs
+    from eld_tpu_torch.data.patchstore import PatchStore
+    from eld_tpu_torch.noise.kernels import synthesize_kernel
+    from eld_tpu_torch.tools import train_real, train_syn
+    from tests.tiff_fixture import make_dng
+
+    src, dest = os.path.join(tmp, "sid_train"), os.path.join(tmp, "train6")
+    for sub in ("short", "long"):
+        os.makedirs(os.path.join(src, sub))
+    rng = np.random.default_rng(SEED + 5)
+    longs = sorted({p[1] for p in sid_pairs("train")})[:12]
+    pairs = sorted(sid_pairs("train"))[:2]
+    scenes = {}
+    for fn in sorted(set(longs) | {b for _, b in pairs}):
+        scenes[fn] = _smooth_mosaic(FULL_MOSAIC, rng)
+        with open(os.path.join(src, "long", fn), "wb") as f:
+            f.write(make_dng(scenes[fn], iso=100, exposure=10))
+    for a, b in pairs:
+        expo = float(a.split("_")[-1][:-5])
+        dark = (512 + (scenes[b].astype(np.float32) - 512) * expo / 10).astype(np.uint16)
+        with open(os.path.join(src, "short", a), "wb") as f:
+            f.write(make_dng(dark, iso=100, exposure=expo))
+    t0 = time.perf_counter()
+    builder.create_sony_dataset_paired(src, dest, num_samples=2)
+    builder.create_sony_dataset(src, dest, num_samples=12)
+    builder.create_sony_syn_dataset(src, dest, 4, num_samples=12, seed=SEED)
+    builder.create_sony_dataset_srgb(src, dest, num_samples=2)
+    build_s = time.perf_counter() - t0
+    counts = {name: (len(PatchStore(os.path.join(dest, name))),
+                     PatchStore(os.path.join(dest, name)).shape)
+              for name in sorted(os.listdir(dest))}
+    per = (FULL_FRAME[0] // 512) * (FULL_FRAME[1] // 512)  # 8 patches of 512^2 a frame
+    srgb_store = builder.store_name("clean", "srgb", crf=True)
+    want = {builder.store_name("input"): 2 * per, builder.store_name("target"): 2 * per,
+            builder.store_name("clean"): 12 * per,
+            builder.store_name("syn", camera="SonyA7S2"): 12 * per, srgb_store: 2 * per}
+    check({k: v[0] for k, v in counts.items()} == want, f"builder stores: {counts}")
+    check(counts[srgb_store][1] == (512, 512, 3), f"sRGB store {counts}")
+    print(f"[6e] builder: {len(longs)} long + {len(pairs)} short full frames -> " +
+          ", ".join(f"{k} {n}x{s}" for k, (n, s) in counts.items()) +
+          f" in {build_s:.2f} s (host)", flush=True)
+
+    batch = 8
+    common = ["--traindir", dest, "--evaldir", os.path.join(tmp, "no_eval"), "-b", str(batch),
+              "--bf16", "--epochs", "1", "--no-log", "--no-verbose", "--seed", str(SEED),
+              "--nThreads", "4", "--device", "cuda", "--include", "4"]
+    runs = {"train_real": (train_real.main, ["--checkpoints_dir", os.path.join(tmp, "ck_r")]),
+            "offline_noise": (train_syn.main, ["--offline_noise", "--checkpoints_dir",
+                                               os.path.join(tmp, "ck_o")]),
+            "srgb": (train_syn.main, ["--stage_in", "srgb", "--stage_out", "srgb", "--crf",
+                                      "--noise", "eld", "--checkpoints_dir",
+                                      os.path.join(tmp, "ck_s")])}
+    # the per-step loader records every step, the pooled trainer (--scan
+    # auto: 10) every call: 2 steps, 12 steps in calls of 10 and 2, 2 steps
+    paired_steps, pooled_steps = 2 * per // batch, 12 * per // batch
+    want_calls = {"train_real": list(range(paired_steps)),
+                  "offline_noise": sorted({min(k, pooled_steps)
+                                           for k in range(10, pooled_steps + 10, 10)}),
+                  "srgb": list(range(paired_steps))}
+    srgb_launches = 0
+    for name, (fn, extra) in runs.items():
+        synthesize_kernel.launches = 0
+        t0 = time.perf_counter()
+        engine = fn(common + extra)
+        wall = time.perf_counter() - t0
+        launches = synthesize_kernel.launches
+        calls = [h[0] for h in engine.history]
+        losses = [v for h in engine.history for v in h[1].values()]
+        check(calls == want_calls[name], f"{name}: steps/calls {calls}, "
+              f"want {want_calls[name]} (--scan auto: 10 pooled, 0 for sRGB)")
+        check(all(math.isfinite(v) for v in losses), f"{name}: non-finite loss {losses}")
+        check(launches == (engine.iterations if name == "srgb" else 0),
+              f"{name}: noise kernel launched {launches} times for {engine.iterations} steps")
+        if name == "srgb":
+            srgb_launches = launches
+            check(engine.model.conv1_1.in_channels == 3, "sRGB stage built a 4-channel U-Net")
+        print(f"[6e] {name}: {engine.iterations} steps in {wall:.2f} s (set-up included); "
+              f"losses {', '.join(f'{v:.5f}' for v in losses)}; noise kernel launches "
+              f"{launches}", flush=True)
+    return srgb_launches, paired_steps
 
 
 def main():
@@ -767,13 +1196,32 @@ def main():
     step_ms = phase3b(card)
     with tempfile.TemporaryDirectory() as tmp:
         engines, pooled_launches, pooled_steps = phase4(card, tmp, step_ms)
-        phase5(card, tmp, engines)
+        p5 = phase5(card, tmp, engines)
+        secs = {"start": time.perf_counter()}
+        isp_ms = phase6a(card)
+        secs["6a"] = time.perf_counter()
+        arts, int8 = phase6b(card, tmp, p5["ckpt"])
+        secs["6b"] = time.perf_counter()
+        serving = phase6c(card, tmp, p5["ckpt"], arts)
+        secs["6c"] = time.perf_counter()
+        phase6d(card, tmp, p5)
+        secs["6d"] = time.perf_counter()
+        srgb_launches, srgb_steps = phase6e(card, tmp)
+        secs["6e"] = time.perf_counter()
+        marks = list(secs.values())
+        print(f"[6] phase 6: {marks[-1] - marks[0]:.1f} s (" + ", ".join(
+            f"{k} {b - a:.1f} s" for k, a, b in zip(list(secs)[1:], marks, marks[1:])) + ")",
+            flush=True)
+        print("[6] " + json.dumps({
+            "isp_ms": isp_ms, "denoise": serving, "int8": int8,
+            "export": {k: {f: v[f] for f in ("export_s", "mb", "ms", "eager_ms", "err")}
+                       for k, v in arts.items()}}), flush=True)
 
     import torch
 
     from eld_tpu_torch.noise.kernels import REPLACES, SOURCE_PATH
 
-    launches = s["launches"] + pooled_launches
+    launches = s["launches"] + pooled_launches + srgb_launches
     kernels = {"kernels": [{
         "name": "noise_synth", "route": "cuda", "source": SOURCE_PATH, "replaces": REPLACES,
         "launches": launches, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
@@ -781,7 +1229,8 @@ def main():
         "library_ms": None,  # no single PyTorch call computes this function
         "ms_smooth": k["ms_smooth"], "kernel_ms": k["kernel_ms"],
         "kernel_ms_smooth": k["kernel_ms_smooth"], "ops_ms": k["ops_ms"],
-        "launches_per_step": launches / (s["steps"] + pooled_steps)}]}
+        "kernel_ms_c3": k["kernel_ms_c3"], "bound_ms_c3": k["bound_ms_c3"],
+        "launches_per_step": launches / (s["steps"] + pooled_steps + srgb_steps)}]}
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,7 +2,8 @@
 
 Importing any ``eld_tpu`` module imports JAX, so the port never imports
 it; it reads the shipped data files (camera calibration ``.npy`` files,
-the SID pair lists, ``libpatchstore.so`` and ``librawio.so``) from the
+the EMoR basis and calibrated CRF, the SID pair lists,
+``libpatchstore.so`` and ``librawio.so``) from the
 sibling ``eld_tpu/data_files`` directory.
 """
 
@@ -14,6 +15,7 @@ PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
 REPO_ROOT = os.path.dirname(PACKAGE_DIR)
 DATA_FILES = os.path.join(REPO_ROOT, "eld_tpu", "data_files")
 CAMERA_PARAMS_DIR = os.path.join(DATA_FILES, "camera_params")
+EMOR_DIR = os.path.join(DATA_FILES, "emor")
 PATCHSTORE_LIB = os.path.join(DATA_FILES, "native", "libpatchstore.so")
 RAWIO_LIB = os.path.join(DATA_FILES, "native", "librawio.so")
 PAIRS_DIR = os.path.join(DATA_FILES, "pairs")

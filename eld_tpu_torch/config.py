@@ -15,6 +15,7 @@ import random
 from typing import Optional
 
 import numpy as onp
+import torch
 
 
 @dataclasses.dataclass
@@ -82,6 +83,18 @@ class Config:
     @property
     def save_dir(self) -> str:
         return os.path.join(self.checkpoints_dir, self.run_name)
+
+
+def torch_device(name: str) -> torch.device:
+    """``torch.device(name)`` for a run: raises for a CUDA device when there
+    is no card (nothing falls back to the CPU), and turns TF32 off, so f32
+    matmuls and convolutions compute in f32."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name}: no CUDA device is available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return device
 
 
 def _add_flags(p: argparse.ArgumentParser, train: bool):

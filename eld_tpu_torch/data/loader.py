@@ -6,8 +6,10 @@ releases the GIL, so a thread pool with a bounded queue overlaps it with
 the training step.  ``prefetch_to_device`` copies each batch from pinned
 host memory to the device without blocking, keeping ``size`` batches in
 flight ahead of the consumer.  ``readahead`` runs any iterator one or
-more items ahead on a thread (eval's raw decodes), and ``pool_to_device``
-puts a whole patch store on the device for the pooled trainer.
+more items ahead on a thread (eval's raw decodes), ``prefetched_map`` maps
+a function over items on a thread pool in order (the serving CLI's
+decodes), and ``pool_to_device`` puts a whole patch store on the device
+for the pooled trainer.
 """
 
 from __future__ import annotations
@@ -163,6 +165,34 @@ def prefetch_to_device(iterator, device, size: int = 2):
         nxt = next(it, None)
         if nxt is not None:
             pending.append(to_device(nxt, device))
+
+
+def prefetched_map(fn, items, workers: int, window: int):
+    """Ordered, bounded-in-flight background map: yields ``fn(item)`` in
+    input order while up to ``window`` calls are queued on ``workers``
+    threads (``workers <= 0``: a plain synchronous loop).
+
+    An exception raised by ``fn`` is raised at its item's position, as in
+    the synchronous loop, and the calls queued behind it are cancelled then
+    (as they are when the consumer abandons the generator): no call starts
+    on an item past the failing one; calls already running finish on their
+    threads.  ``fn`` must be safe to call concurrently on distinct items
+    (the native raw decoder and the patch-store reads are)."""
+    if workers <= 0:
+        for item in items:
+            yield fn(item)
+        return
+    ex = ThreadPoolExecutor(max_workers=workers)
+    futs: collections.deque = collections.deque()
+    try:
+        for item in items:
+            futs.append(ex.submit(fn, item))
+            if len(futs) >= window:
+                yield futs.popleft().result()
+        while futs:
+            yield futs.popleft().result()
+    finally:
+        ex.shutdown(wait=False, cancel_futures=True)
 
 
 class _Raised:

@@ -148,6 +148,11 @@ class PatchStore:
     def __len__(self):
         return int(self.length * self.repeat)
 
+    def physical_index(self, index: int) -> int:
+        """The record number a (size/repeat-virtualized) item index maps to,
+        which is also its row in the aux ``meta`` arrays."""
+        return int(index) % self.length
+
     def record(self, index: int) -> onp.ndarray:
         """Raw record at index (original dtype)."""
         index = index % self.length

@@ -81,8 +81,11 @@ def pack_params(params: NoiseParams, n: int) -> torch.Tensor:
 def _check(clean: torch.Tensor, params: NoiseParams):
     if clean.dtype != torch.float32:
         raise TypeError(f"clean must be float32, got {clean.dtype}")
-    if clean.ndim != 4 or clean.shape[-1] not in (4, 9):
-        raise ValueError(f"clean must be (N, H, W, C) with C in (4, 9), got {tuple(clean.shape)}")
+    # any C, as the TPU kernel: C == 4 is packed Bayer (row draw per channel
+    # pair, color bias); any other C takes one row draw per packed row and
+    # no bias (the kernel's scalar path)
+    if clean.ndim != 4 or clean.shape[-1] < 1:
+        raise ValueError(f"clean must be (N, H, W, C) with C >= 1, got {tuple(clean.shape)}")
     if not clean.is_contiguous():
         raise ValueError("clean must be contiguous (NHWC)")
     for name in ("K", "g_scale", "G_scale", "G_shape", "R_scale", "color_bias",

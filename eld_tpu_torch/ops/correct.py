@@ -14,6 +14,11 @@ from __future__ import annotations
 import torch
 
 
+def illuminance_correct(pred: torch.Tensor, source: torch.Tensor) -> torch.Tensor:
+    """One (H, W, C) image: pred corrected against source."""
+    return illuminance_correct_batch(pred[None], source[None])[0]
+
+
 def illuminance_correct_batch(pred: torch.Tensor, source: torch.Tensor) -> torch.Tensor:
     """(N, H, W, C) pred and source -> corrected pred, one alpha per item;
     a source of batch 1 is shared across the batch."""

@@ -19,6 +19,7 @@ import sys
 import numpy as onp
 
 from eld_tpu_torch import config as config_mod
+from eld_tpu_torch.core.emor import load_crf
 from eld_tpu_torch.data.datasets import SIDDataset
 from eld_tpu_torch.data.loader import Loader
 from eld_tpu_torch.data.pairs import eval_pairs_by_ratio
@@ -60,13 +61,14 @@ def main(argv=None):
         cfg.resume = True
 
     engine = Engine(cfg)
+    crf = load_crf() if cfg.crf else None
     buckets = parse_pairs_file(ns.pairs) if ns.pairs else eval_pairs_by_ratio()
     results = {}
     for ratio, pairs in buckets.items():
         print(f"Eval ratio {ratio}")
         ds = SIDDataset(ns.datadir, pairs, memorize=False, augment=False,
-                        stage_in=cfg.stage_in, stage_out=cfg.stage_out,
-                        rng=onp.random.default_rng(cfg.seed))
+                        stage_in=cfg.stage_in, stage_out=cfg.stage_out, gt_wb=cfg.gt_wb,
+                        crf=crf, rng=onp.random.default_rng(cfg.seed))
         loader = Loader(ds, batch_size=1, num_workers=0)
         res = engine.eval(loader, dataset_name=f"sid_eval_{ratio}", savedir=ns.savedir,
                           correct=True, crop=True)

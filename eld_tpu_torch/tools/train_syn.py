@@ -1,5 +1,5 @@
 """Synthetic-noise training CLI — the flagship entry point (counterpart of
-``eld_tpu/tools/train_syn.py``, raw-domain path).
+``eld_tpu/tools/train_syn.py``).
 
 Clean patches come from a PatchStore as uint16; on the device each step
 samples calibrated noise parameters, synthesizes the noisy input with the
@@ -9,6 +9,16 @@ clean set is put on the device once and the pooled trainer runs 10 steps
 per call, picking and augmenting its batches there; ``--scan 0`` is the
 per-step host loader.  Every ``--eval_every`` epochs the model is scored
 on the SID indoor-15 subsets of ratio 100 and 300 under ``--evaldir``.
+
+Two other sources:
+  * ``--offline_noise``: pre-baked noisy patches (``SID_Sony_syn_Raw_<camera>
+    .eps``, ``build_dataset syn``) paired with the clean store, no noise
+    model in the step; pooled as {"input", "target"} under ``--scan`` auto,
+    both stores counted in the pool's size;
+  * the sRGB stages (``--stage_in/--stage_out srgb``): 3-channel clean
+    patches of ``SID_Sony_SRGB[_CRF].eps`` through the per-step loader
+    (``--scan`` auto gives 0), the noise synthesized on them by the kernel
+    at C = 3.
 
 Usage:
   python -m eld_tpu_torch.tools.train_syn --name sid_eld --noise eld --include 4 \\
@@ -26,10 +36,13 @@ import numpy as onp
 import torch
 
 from eld_tpu_torch import config as config_mod
-from eld_tpu_torch.data.datasets import CleanPatchDataset, SIDDataset
+from eld_tpu_torch.core.emor import load_crf
+from eld_tpu_torch.data.builder import store_name
+from eld_tpu_torch.data.datasets import CleanPatchDataset, ELDTrainDataset, SIDDataset
 from eld_tpu_torch.data.loader import Loader, pool_to_device
 from eld_tpu_torch.data.pairs import eval_pairs_by_ratio
 from eld_tpu_torch.data.patchstore import PatchStore
+from eld_tpu_torch.noise.params import CAMERA_NAMES
 from eld_tpu_torch.train.engine import Engine
 
 AUTO_SCAN = 10
@@ -78,27 +91,28 @@ def resolve_scan(scan: int, pool_bytes: int, budget_bytes: int, srgb: bool) -> i
     return AUTO_SCAN
 
 
-def _refuse_unported(ns, cfg):
-    """Raise for the options this trainer does not implement yet; each
+def refuse_unported(cfg):
+    """Raise for the options the trainers do not implement yet; each
     message names the ROADMAP.md queue-1 item that brings it."""
     missing = []
-    if ns.offline_noise:
-        missing.append("--offline_noise (paired train_real: queue 1 #7)")
-    if cfg.stage_in == "srgb" or cfg.stage_out == "srgb" or cfg.stage_eval == "srgb" or cfg.crf:
-        missing.append("sRGB stages / --crf (ISP: queue 1 #9)")
     if cfg.multihost or cfg.mesh_data > 1 or cfg.mesh_spatial > 1:
         missing.append("--multihost / --mesh_* > 1 (parallel: queue 1 #13)")
-    if not cfg.noise:
-        missing.append("paired training without --noise (train_real: queue 1 #7)")
     if cfg.profile:
         missing.append("--profile (torch.profiler with the bench: queue 1 #15)")
     if missing:
         raise NotImplementedError("not ported yet: " + "; ".join(missing))
 
 
-def _eval_loaders(evaldir: str, cfg) -> dict:
-    """Loaders of the SID indoor-15 pairs of ratio 100 and 300; raises
-    when a file of them is missing under ``evaldir``."""
+def srgb_stage(cfg) -> bool:
+    """Whether the run trains in sRGB (on 3-channel patches)."""
+    return cfg.stage_in == "srgb" or cfg.stage_out == "srgb"
+
+
+def eval_loaders(evaldir: str, cfg) -> dict:
+    """Loaders of the SID indoor-15 pairs of ratio 100 and 300, in the
+    run's stages (and CRF); raises when a file of them is missing under
+    ``evaldir``."""
+    crf = load_crf() if cfg.crf else None
     pairs = eval_pairs_by_ratio()
     loaders = {}
     for ratio in (100, 300):
@@ -107,9 +121,29 @@ def _eval_loaders(evaldir: str, cfg) -> dict:
                 if not os.path.exists(path):
                     raise FileNotFoundError(path)
         ds = SIDDataset(evaldir, pairs[ratio], augment=False, memorize=False,
-                        rng=onp.random.default_rng(cfg.seed))
+                        stage_in=cfg.stage_in, stage_out=cfg.stage_out, gt_wb=cfg.gt_wb,
+                        crf=crf, rng=onp.random.default_rng(cfg.seed))
         loaders[ratio] = Loader(ds, batch_size=1, num_workers=0)
     return loaders
+
+
+def train_epochs(engine: Engine, epochs: int, eval_every: int, evals: dict, train_loader,
+                 pool=None, steps_per_epoch: int = 0, scan: int = 0):
+    """Train to ``epochs`` under the reference schedule, from the pool with
+    ``scan`` steps per call or else from ``train_loader``, scoring on the
+    eval loaders every ``eval_every`` epochs."""
+    while engine.epoch < epochs:
+        engine.set_learning_rate(lr_for_epoch(engine.epoch))
+        if pool is not None:
+            engine.train_pool(pool, steps_per_epoch, steps_per_call=scan)
+        else:
+            engine.train(train_loader)
+        if engine.epoch % eval_every == 0 and evals:
+            try:
+                engine.eval(evals[100], dataset_name="sid_eval_100", correct=True)
+                engine.eval(evals[300], dataset_name="sid_eval_300", correct=True)
+            except Exception as e:  # noqa: BLE001 - a failed eval does not stop training
+                print(f"[w] eval failed: {e}", file=sys.stderr)
 
 
 def main(argv=None):
@@ -126,45 +160,55 @@ def main(argv=None):
                           "memory, else 0")
     ns, rest = pre.parse_known_args(argv)
     cfg = config_mod.parse(rest, train=True)
-    _refuse_unported(ns, cfg)
+    refuse_unported(cfg)
 
-    store = PatchStore(join(ns.traindir, "SID_Sony_Raw.eps"), size=cfg.max_dataset_size)
-    # raw uint16 to the device; normalization happens in the train step
-    train_ds = CleanPatchDataset(store, device_normalize=True,
-                                 rng=onp.random.default_rng(cfg.seed))
+    if srgb_stage(cfg):
+        stores = {"clean": PatchStore(join(ns.traindir, store_name("clean", "srgb", cfg.crf)),
+                                      size=cfg.max_dataset_size)}
+        train_ds = CleanPatchDataset(stores["clean"], rng=onp.random.default_rng(cfg.seed))
+    elif ns.offline_noise:
+        camera = CAMERA_NAMES[4 if cfg.include is None else cfg.include]
+        stores = {"input": PatchStore(join(ns.traindir, store_name("syn", camera=camera)),
+                                      size=cfg.max_dataset_size),
+                  "target": PatchStore(join(ns.traindir, store_name("clean")),
+                                       size=cfg.max_dataset_size)}
+        train_ds = ELDTrainDataset(stores["target"], [stores["input"]],
+                                   rng=onp.random.default_rng(cfg.seed))
+        cfg.noise = ""  # paired: the noise is in the input store
+    elif not cfg.noise:
+        raise ValueError("--noise '' trains on nothing but clean patches: give a noise model, "
+                         "or --offline_noise, or use train_real for paired stores")
+    else:
+        stores = {"clean": PatchStore(join(ns.traindir, store_name("clean")),
+                                      size=cfg.max_dataset_size)}
+        # raw uint16 to the device; normalization happens in the train step
+        train_ds = CleanPatchDataset(stores["clean"], device_normalize=True,
+                                     rng=onp.random.default_rng(cfg.seed))
     train_loader = Loader(train_ds, batch_size=cfg.batch_size, shuffle=True,
                           num_workers=cfg.n_threads, seed=cfg.seed, drop_last=True)
     try:
-        eval_loaders = _eval_loaders(ns.evaldir, cfg)
+        evals = eval_loaders(ns.evaldir, cfg)
     except (OSError, ValueError) as e:  # eval data is optional during training
-        eval_loaders = {}
+        evals = {}
         print(f"[i] eval datasets unavailable: {e}", file=sys.stderr)
 
     engine = Engine(cfg)
-    print(f"[i] using noise model {cfg.noise!r} (on-device)")
-    pool_bytes = len(store) * int(onp.prod(store.shape)) * onp.dtype(store.dtype).itemsize
+    print(f"[i] using noise model {cfg.noise!r} (on-device)" if cfg.noise
+          else "[i] paired mode (pre-baked noise)")
+    pool_bytes = sum(len(s) * int(onp.prod(s.shape)) * onp.dtype(s.dtype).itemsize
+                     for s in stores.values())
     scan = resolve_scan(ns.scan, pool_bytes,
                         pool_budget_bytes(device_memory_bytes(engine.device)),
-                        srgb=cfg.stage_in == "srgb" or cfg.stage_out == "srgb")
-    pool = None
+                        srgb=srgb_stage(cfg))
+    pool, steps_per_epoch = None, 0
     if scan > 0:
-        print(f"[i] pooled trainer: {len(store)} patches ({pool_bytes / 1e9:.2f} GB) on "
+        print(f"[i] pooled trainer: {len(train_ds)} items ({pool_bytes / 1e9:.2f} GB) on "
               f"{engine.device}, {scan} steps per call")
-        pool = {"clean": pool_to_device(store, engine.device)}
+        # the stores already show --max_dataset_size
+        pool = {k: pool_to_device(s, engine.device) for k, s in stores.items()}
         steps_per_epoch = max(1, len(train_ds) // cfg.batch_size)
-
-    while engine.epoch < ns.epochs:
-        engine.set_learning_rate(lr_for_epoch(engine.epoch))
-        if pool is not None:
-            engine.train_pool(pool, steps_per_epoch, steps_per_call=scan)
-        else:
-            engine.train(train_loader)
-        if engine.epoch % ns.eval_every == 0 and eval_loaders:
-            try:
-                engine.eval(eval_loaders[100], dataset_name="sid_eval_100", correct=True)
-                engine.eval(eval_loaders[300], dataset_name="sid_eval_300", correct=True)
-            except Exception as e:  # noqa: BLE001 - a failed eval does not stop training
-                print(f"[w] eval failed: {e}", file=sys.stderr)
+    train_epochs(engine, ns.epochs, ns.eval_every, evals, train_loader, pool, steps_per_epoch,
+                 scan)
     return engine
 
 

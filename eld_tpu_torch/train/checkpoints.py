@@ -62,17 +62,28 @@ def find_checkpoint(save_dir: str, epoch: Optional[int] = None) -> Optional[str]
     return latest if os.path.exists(latest) else None
 
 
-def load_checkpoint(path: str, state: TrainState) -> TrainState:
-    """Restore params, and the optimizer state, epoch and iterations where
-    the file holds them, into ``state`` (in place, on its device)."""
+def _read(path: str, device) -> dict:
     if path.rstrip("/").endswith(".ckpt"):
         raise ValueError(
             f"{path} is an eld_tpu orbax checkpoint, which the port does not read: "
             "restore its params with eld_tpu (numpy arrays), convert them with "
             "eld_tpu_torch.compat.jax_params.flax_to_state_dict and save them as "
             "{'netG': state_dict} in a .pt file")
-    device = next(state.model.parameters()).device
-    ck = torch.load(path, map_location=device, weights_only=True)
+    return torch.load(path, map_location=device, weights_only=True)
+
+
+def load_params(path: str, model: torch.nn.Module):
+    """Load a ``.pt``'s network weights into ``model`` (on its device);
+    returns the file's (epoch, iterations), 0 where it holds none."""
+    ck = _read(path, next(model.parameters()).device)
+    model.load_state_dict(ck["netG"])
+    return int(ck.get("epoch", 0)), int(ck.get("iterations", 0))
+
+
+def load_checkpoint(path: str, state: TrainState) -> TrainState:
+    """Restore params, and the optimizer state, epoch and iterations where
+    the file holds them, into ``state`` (in place, on its device)."""
+    ck = _read(path, next(state.model.parameters()).device)
     state.model.load_state_dict(ck["netG"])
     if "opt_g" in ck:
         state.optimizer.load_state_dict(ck["opt_g"])

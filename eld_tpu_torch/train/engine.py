@@ -8,9 +8,10 @@ is the fast path, autocast over f32 parameters).
 
 Eval protocol (the reference's ``models/ELD_model.py:203-307``): optional
 512-px center crop, forward (optionally 4-tile chopped), per-item
-illuminance correction, x255 clip, PSNR/SSIM per item.  The sRGB eval
-stage and the CRF need the ISP (ROADMAP.md queue 1 #9), and multi-device
-runs the parallel layer (#13); both are refused.
+illuminance correction, optional raw -> sRGB (``--stage_eval srgb``, gamma
+or the calibrated CRF under ``--crf``), x255 clip, PSNR/SSIM per item.
+Multi-device runs need the parallel layer (ROADMAP.md queue 1 #13) and
+are refused.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ from typing import Optional
 import numpy as onp
 import torch
 
-from eld_tpu_torch.config import Config
+from eld_tpu_torch.config import Config, torch_device
+from eld_tpu_torch.core import emor, isp
 from eld_tpu_torch.core.packing import crop_center
 from eld_tpu_torch.data.loader import prefetch_to_device, readahead
 from eld_tpu_torch.models import build_arch
@@ -47,17 +49,10 @@ from eld_tpu_torch.utils.logging import (
 class Engine:
     def __init__(self, cfg: Config):
         self.cfg = cfg
-        self.device = torch.device(cfg.device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"--device {cfg.device}: no CUDA device is available")
-        if cfg.stage_eval == "srgb" or cfg.crf:
-            raise NotImplementedError("not ported yet: --stage_eval srgb / --crf "
-                                      "(ISP: ROADMAP.md queue 1 #9)")
         if cfg.multihost or cfg.mesh_spatial > 1:
             raise NotImplementedError("not ported yet: --multihost / --mesh_spatial > 1 "
                                       "(parallel: ROADMAP.md queue 1 #13)")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        self.device = torch_device(cfg.device)
         self.writer = None
         self.throughput = ThroughputMeter()
         # (iteration, {metric: value}, host time the values were read)
@@ -84,6 +79,9 @@ class Engine:
             model = model.to(memory_format=torch.channels_last)
         self.model = model
         self.state = create_train_state(model, lr=cfg.lr, beta1=cfg.beta1, weight_decay=cfg.wd)
+        self.crf = None
+        if cfg.crf:
+            self.crf = tuple(torch.from_numpy(a).to(self.device) for a in emor.load_crf())
 
         autocast = torch.bfloat16 if cfg.bf16 else None
         self.bank = None
@@ -228,11 +226,22 @@ class Engine:
     def _to_device(self, x) -> torch.Tensor:
         return torch.from_numpy(onp.ascontiguousarray(x, onp.float32)).to(self.device)
 
+    def _to_srgb(self, x4: torch.Tensor, wb, ccm) -> torch.Tensor:
+        """(N, H, W, 4) raw -> (N, H, W, 3) sRGB with per-item or shared
+        wb/ccm; each wb is normalized by its green."""
+        n = x4.shape[0]
+        wb = torch.atleast_2d(torch.as_tensor(onp.asarray(wb, onp.float32), device=x4.device))
+        wb = wb / wb[:, 1:2]
+        ccm = torch.as_tensor(onp.asarray(ccm, onp.float32), device=x4.device).reshape(-1, 3, 3)
+        return isp.process(x4, wb.expand(n, -1), ccm.expand(n, -1, -1), crf=self.crf)
+
     def eval_one(self, item: dict, correct: bool = True, crop: bool = True,
                  savedir: Optional[str] = None) -> dict:
         """Score one {input, target, ...} item: {PSNR, SSIM} averaged over
         the batch, every batch item corrected and scored on its own, plus
-        the input-vs-target PSNR_in / SSIM_in."""
+        the input-vs-target PSNR_in / SSIM_in.  With ``--stage_eval srgb``
+        a raw output, target and input are scored after the ISP, with the
+        item's wb/ccm."""
         inp, tgt = item["input"], item["target"]
         if inp.ndim == 3:
             inp, tgt = inp[None], tgt[None]
@@ -244,6 +253,10 @@ class Engine:
         out = self._fwd(inp)
         if correct:
             out = illuminance_correct_batch(out, tgt)
+        if self.cfg.stage_out == "raw" and self.cfg.stage_eval == "srgb":
+            wb, ccm = item["wb"], item["ccm"]
+            out = self._to_srgb(out.float(), wb, ccm)
+            tgt, inp = self._to_srgb(tgt, wb, ccm), self._to_srgb(inp, wb, ccm)
 
         def to_im(t):
             return (t.float() * 255.0).clamp(0.0, 255.0)
@@ -317,8 +330,8 @@ class Engine:
             pass
 
     def test(self, loader, savedir=None):
-        """Inference only (no targets): denoise and save previews.  An item
-        with a white balance is previewed in sRGB, which needs the ISP."""
+        """Inference only (no targets): denoise and save previews.  A raw
+        output of an item with a white balance is previewed in sRGB."""
         for i, item in readahead(enumerate(loader)):
             inp = item["input"]
             if inp.ndim == 3:
@@ -326,8 +339,7 @@ class Engine:
             out = self._fwd(self._to_device(inp))
             if savedir is not None:
                 if "wb" in item and self.cfg.stage_out == "raw":
-                    raise NotImplementedError("not ported yet: the sRGB preview of a raw "
-                                              "output (ISP: ROADMAP.md queue 1 #9)")
+                    out = self._to_srgb(out.float(), item["wb"], item["ccm"])
                 name = os.path.splitext(os.path.basename(str(item.get("fn", f"item{i}"))))[0]
                 os.makedirs(os.path.join(savedir, name), exist_ok=True)
                 save_png(os.path.join(savedir, name, f"{self.cfg.run_name}.png"),

@@ -1,5 +1,5 @@
-"""The port's noise kernel, pooled trainer and eval forward on the card
-(marked ``cuda``; skipped where there is none).
+"""The port's noise kernel, pooled trainer, eval forward, ISP and serving
+artifacts on the card (marked ``cuda``; skipped where there is none).
 
 This file imports neither JAX nor eld_tpu, so it runs on a machine that
 has the card and torch but not the JAX package's dependencies:
@@ -13,7 +13,9 @@ import numpy as onp
 import pytest
 import torch
 
+from eld_tpu_torch import export
 from eld_tpu_torch.config import Config
+from eld_tpu_torch.core import emor, isp
 from eld_tpu_torch.data.loader import pool_to_device
 from eld_tpu_torch.data.patchstore import PatchStore, PatchStoreWriter
 from eld_tpu_torch.models import build_arch
@@ -42,8 +44,10 @@ def _batch(device, shape, seed=0):
 
 MODELS = ["g", "p", "pg", "Pg", "G", "r", "q", "c", "eld", "Pgrqc"]
 # the test shape; ragged (odd H and W); one pixel per row; 9 channels;
-# rows wider than a block (several pixels per thread)
-SHAPES = [(2, 64, 48, 4), (3, 37, 53, 4), (2, 5, 1, 4), (2, 33, 31, 9), (1, 3, 1100, 4)]
+# rows wider than a block (several pixels per thread); 3 channels (the
+# sRGB stage); one ragged channel
+SHAPES = [(2, 64, 48, 4), (3, 37, 53, 4), (2, 5, 1, 4), (2, 33, 31, 9), (1, 3, 1100, 4),
+          (2, 64, 48, 3), (3, 37, 53, 1)]
 
 
 @pytest.mark.cuda
@@ -133,3 +137,38 @@ def test_eval_forward_on_the_card_matches_the_cpu(cuda_device, arch, chop):
     cpu = make_eval_forward(model, chop=chop)(x)
     card = make_eval_forward(copy.deepcopy(model).to(cuda_device), chop=chop)(x.to(cuda_device))
     assert float((card.cpu() - cpu).abs().max()) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("render", ["gamma", "crf"])
+def test_isp_on_the_card_matches_the_cpu(cuda_device, render):
+    """process on the card against the CPU: 8-bit codes equal except at most
+    0.1%, which differ by one (pow/interp an ulp apart)."""
+    rng = onp.random.default_rng(2)
+    raw = torch.from_numpy(rng.random((2, 64, 96, 4), dtype=onp.float32))
+    wb = torch.from_numpy(rng.uniform(1, 2.5, (2, 4)).astype(onp.float32))
+    ccm = torch.from_numpy((onp.eye(3) + rng.normal(0, 0.2, (2, 3, 3))).astype(onp.float32))
+    crf = emor.load_crf() if render == "crf" else None
+    cpu = isp.process(raw, wb, ccm, crf=crf)
+    card = isp.process(raw.to(cuda_device), wb.to(cuda_device), ccm.to(cuda_device), crf=crf)
+    codes = torch.round((card.cpu().double() - cpu.double()) * 255)
+    assert float(codes.abs().max()) <= 1 and float((codes != 0).double().mean()) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantize", [None, "int8"])
+def test_artifact_exported_on_the_cpu_serves_on_the_card(cuda_device, tmp_path, quantize):
+    """An artifact traced on the CPU, loaded on the card: equal to the CPU
+    load within 1e-4 (cuDNN's summation order), batches of 1 and 3."""
+    torch.manual_seed(0)
+    model = build_arch("unet", 4, 4, base_width=8, skip_mode="split").eval()
+    path = str(tmp_path / "a.eldx")
+    meta = export.save_denoiser(path, model, 64, 96, quantize=quantize)
+    assert meta["device"] == "cpu"
+    on_cpu, _ = export.load_denoiser(path, "cpu")
+    on_card, _ = export.load_denoiser(path, cuda_device)
+    for n in (1, 3):
+        x = torch.from_numpy(onp.random.default_rng(n).random((n, 64, 96, 4), dtype=onp.float32))
+        got = on_card(x.to(cuda_device))
+        assert got.device.type == "cuda"
+        assert float((got.cpu() - on_cpu(x)).abs().max()) < 1e-4

@@ -214,8 +214,6 @@ def test_sid_dataset_items_equal_jax(tmp_path, augment):
                     onp.testing.assert_array_equal(a[k], b[k])
                 else:
                     assert a[k] == b[k], k
-    with pytest.raises(NotImplementedError, match="queue 1 #9"):
-        SIDDataset(root, fns, stage_in="srgb")
 
 
 def _eld_tree(root, camera, suffix, scenes, shape):
@@ -388,17 +386,22 @@ def test_engine_eval_matches_jax_engine_on_one_checkpoint(tmp_path, monkeypatch)
 
 
 def test_unported_eval_options_raise_and_test_writes_previews(tmp_path):
-    for kw in ({"stage_eval": "srgb"}, {"crf": True}, {"mesh_spatial": 2},
-               {"multihost": True}):
-        with pytest.raises(NotImplementedError, match="queue 1 #"):
+    """Multi-device options raise naming their queue item; Engine.test
+    previews a raw output as packed RGBG, or in sRGB through the ISP when
+    the item carries a white balance."""
+    for kw in ({"mesh_spatial": 2}, {"multihost": True}):
+        with pytest.raises(NotImplementedError, match="queue 1 #13"):
             Engine(_cfg(tmp_path, "u", **kw))
     eng = Engine(_cfg(tmp_path, "t"))
     items = [{"input": onp.random.default_rng(9).random((32, 32, 4), dtype=onp.float32),
               "fn": "a.npz"}]
     eng.test(items, savedir=str(tmp_path / "png"))
     assert os.listdir(tmp_path / "png" / "a") == ["t.png"]
-    with pytest.raises(NotImplementedError, match="queue 1 #9"):
-        eng.test([dict(items[0], wb=onp.ones(4))], savedir=str(tmp_path / "png"))
+    eng.test([dict(items[0], fn="b.npz", wb=onp.array([2.0, 1.0, 1.5, 1.0]), ccm=onp.eye(3))],
+             savedir=str(tmp_path / "png"))
+    from eld_tpu_torch.utils.images import load_png
+
+    assert load_png(str(tmp_path / "png" / "b" / "t.png")).shape == (32, 32, 3)
 
 
 # ---- the entry points ----------------------------------------------------

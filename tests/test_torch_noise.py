@@ -343,7 +343,9 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(sony):
     with pytest.raises(TypeError):
         kernels.synthesize_kernel(0, torch.zeros((2, 8, 8, 4), dtype=torch.float64), p)
     with pytest.raises(ValueError):
-        kernels.synthesize_kernel(0, torch.zeros((2, 8, 8, 5)), p)
+        kernels.synthesize_kernel(0, torch.zeros((2, 8, 8, 0)), p)
+    for c in (1, 3, 5):  # any C >= 1, as the TPU kernel
+        assert kernels.synthesize_kernel(0, torch.zeros((2, 8, 8, c)), p).shape == (2, 8, 8, c)
     with pytest.raises(ValueError):
         kernels.synthesize_kernel(0, torch.zeros((2, 8, 8, 4)).transpose(1, 2), p)
     with pytest.raises(ValueError):
