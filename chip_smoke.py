@@ -50,6 +50,21 @@ Phases, one line or block of output each; any failure exits non-zero:
      train_real, train_syn --offline_noise (--scan auto: 10) and train_syn
      --stage_in/--stage_out srgb (--scan auto: 0; the kernel at C = 3, one
      launch per step);
+  7. the parallel layer on the one card: (a) train_syn --multihost in a
+     world-1 NCCL group (torchrun's variables for one rank) for one pooled
+     epoch of 16 steps over phase 4's pool, its parameters against the same
+     run without --multihost (1e-5 relative), the pooled step with and
+     without DistributedDataParallel in turns and under torch.profiler;
+     (b) two ranks on the one card over gloo (NCCL refuses two ranks on one
+     device; its times are no measure of NCCL): train_syn --multihost, 8
+     pooled f32 steps at global batch 8 and the merged eval, the ranks'
+     parameters against a one-process replay that noises each rank's rows
+     with K1 under that rank's seed, one checkpoint set; (c) the
+     full-frame forward halo-sharded over [cuda:0] x 2 and x 4 against the
+     eager forward (mean 1e-3) with both times, and test_eld --mesh_spatial
+     2 refused naming the missing card; (d) how long save() holds the loop,
+     asynchronous vs synchronous, at full width, and the asynchronous file
+     against the state of the call after 10 more steps;
 and prints the kernels' JSON line, the card line, and a last JSON line
 {"ok": true, "device": {...}}.  It imports nothing of JAX.
 """
@@ -1187,6 +1202,404 @@ def phase6e(card, tmp):
     return srgb_launches, paired_steps
 
 
+# ---- phase 7 ------------------------------------------------------------
+
+def phase7(card, tmp, engines, ckpt_path):
+    """The parallel layer and asynchronous saves (7a-7d); returns their
+    readings."""
+    from eld_tpu_torch.data.loader import pool_to_device
+    from eld_tpu_torch.data.patchstore import PatchStore
+
+    traindir, evaldir = os.path.join(tmp, "train"), os.path.join(tmp, "sid")
+    pool = {"clean": pool_to_device(PatchStore(os.path.join(traindir, "SID_Sony_Raw.eps")),
+                                    "cuda")}
+    secs = [time.perf_counter()]
+    out = {"7a": phase7a(card, tmp, traindir, pool)}
+    secs.append(time.perf_counter())
+    out["7b"] = phase7b(card, tmp, traindir, evaldir)
+    secs.append(time.perf_counter())
+    out["7c"] = phase7c(card, tmp, engines, ckpt_path)
+    secs.append(time.perf_counter())
+    out["7d"] = phase7d(card, engines, pool)
+    secs.append(time.perf_counter())
+    print(f"[7] phase 7: {secs[-1] - secs[0]:.1f} s (" + ", ".join(
+        f"{k} {b - a:.1f} s" for k, a, b in zip(("7a", "7b", "7c", "7d"), secs, secs[1:])) + ")",
+        flush=True)
+    print("[7] " + json.dumps(out), flush=True)
+    return out
+
+
+TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+ADAM_LR = 1e-4  # train_syn's rate below epoch 100
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _cpu_state(model):
+    return {k: v.detach().float().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def _params_close(ref, got, steps):
+    """tests/test_torch_train.py's tolerance for two runs of the same
+    updates in another summation order: no element further than two Adam
+    steps' worth, and 99.9% of them within 1e-6.  Returns (max |diff|,
+    share within 1e-6)."""
+    worst, close, total = 0.0, 0, 0
+    for k, v in ref.items():
+        d = (got[k] - v).abs()
+        worst = max(worst, float(d.max()))
+        close += int((d <= 1e-6).sum())
+        total += d.numel()
+    share = close / total
+    check(worst <= 2 * ADAM_LR * steps and share >= 0.999,
+          f"parameters: max |diff| {worst} (tol {2 * ADAM_LR * steps}), {share:.5f} within 1e-6")
+    return worst, share
+
+
+def _pooled_step_ms(engine, pool, calls=3):
+    """Per-step ms of ``calls`` timed pooled calls of 10 steps (one warm-up
+    call first), host clock around calls that end in a synchronize."""
+    import torch
+
+    from eld_tpu_torch.train.steps import fold_in
+
+    out = []
+    for call in range(calls + 1):
+        seeds = [fold_in(SEED, 20_000 + 10 * call + j) for j in range(10)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine._scan_fn(10)(engine.state, pool, seeds)
+        torch.cuda.synchronize()
+        if call:
+            out.append((time.perf_counter() - t0) / 10 * 1e3)
+    return out
+
+
+def _profiled_call(engine, pool):
+    """One pooled call of 10 steps under torch.profiler (device activity
+    only): (wall ms, device busy ms, NCCL kernels' device ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from eld_tpu_torch.train.steps import fold_in
+
+    seeds = [fold_in(SEED, 40_000 + j) for j in range(10)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine._scan_fn(10)(engine.state, pool, seeds)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    nccl = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
+               if "nccl" in e.key.lower()) / 1e3
+    return wall, _device_busy_ms(prof), nccl
+
+
+def phase7a(card, tmp, traindir, pool):
+    """train_syn --multihost in a world-1 NCCL group (torchrun's variables
+    for one rank) against the same run without it: one pooled epoch of 16
+    steps; then the pooled step with and without DistributedDataParallel."""
+    import torch
+    import torch.distributed as dist
+
+    from eld_tpu_torch.noise.kernels import synthesize_kernel
+    from eld_tpu_torch.tools import train_syn
+
+    common = ["--traindir", traindir, "--evaldir", os.path.join(tmp, "no_eval"), "--noise",
+              "eld", "--include", "4", "-b", "8", "--bf16", "--epochs", "1", "--no-log",
+              "--no-verbose", "--seed", str(SEED), "--nThreads", "4", "--device", "cuda"]
+    runs, launches = {}, 0
+    for tag in ("plain", "multihost"):
+        argv = common + ["--checkpoints_dir", os.path.join(tmp, f"ck7a_{tag}")]
+        env = {}
+        if tag == "multihost":
+            argv.append("--multihost")
+            env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                   "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port())}
+        os.environ.update(env)
+        try:
+            synthesize_kernel.launches = 0
+            t0 = time.perf_counter()
+            engine = train_syn.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n = synthesize_kernel.launches
+        finally:
+            for k in env:
+                os.environ.pop(k)
+        losses = [v for h in engine.history for v in h[1].values()]
+        check(engine.iterations == 16 and n == 16,
+              f"7a {tag}: {engine.iterations} steps, {n} noise kernel launches (want 16, 16)")
+        check(all(math.isfinite(v) for v in losses), f"7a {tag}: non-finite loss {losses}")
+        launches += n
+        runs[tag] = (engine, wall, n)
+    check(dist.is_initialized() and dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          "7a: --multihost did not run in a world-1 NCCL group")
+    engine = runs["multihost"][0]
+    check(engine._forward is not None, "7a: --multihost trained without DistributedDataParallel")
+    ref, got = _cpu_state(runs["plain"][0].model), _cpu_state(engine.model)
+    diff = max(float((got[k] - v).abs().max()) for k, v in ref.items())
+    scale = max(float(v.abs().max()) for v in ref.values())
+    rel = diff / scale
+    check(rel <= 1e-5, f"7a: --multihost vs plain parameters differ by {diff} ({rel:.3g} of "
+                       f"the largest, tol 1e-5)")
+    # the step with DDP (its NCCL all-reduce of the gradients, one rank) and
+    # without, in turns within this call
+    times = {"plain": [], "multihost": []}
+    for tag in ("plain", "multihost", "multihost", "plain"):
+        times[tag] += _pooled_step_ms(runs[tag][0], pool)
+    # where DDP's time goes: the device's busy time against the wall
+    prof = {tag: _profiled_call(runs[tag][0], pool) for tag in ("plain", "multihost")}
+    dist.destroy_process_group()
+    print(f"[7a] train_syn --multihost, world-1 NCCL group: 16 pooled steps (calls "
+          f"{[h[0] for h in engine.history]}) in {runs['multihost'][1]:.2f} s, noise kernel "
+          f"launches {runs['multihost'][2]}; without --multihost {runs['plain'][1]:.2f} s; "
+          f"parameters equal within {diff:.3g} ({rel:.3g} relative, tol 1e-5)", flush=True)
+    print(f"[7a] pooled step ms (bf16, batch 8, 512^2, calls of 10, turns plain/ddp/ddp/plain): "
+          f"without DDP {', '.join(f'{t:.2f}' for t in times['plain'])}; with DDP (NCCL, "
+          f"one rank) {', '.join(f'{t:.2f}' for t in times['multihost'])} on {card}", flush=True)
+    busy = {tag: "not measured" if b is None else f"{b:.1f} ms" for tag, (_, b, _) in prof.items()}
+    print(f"[7a] one call of 10 steps under torch.profiler: without DDP {prof['plain'][0]:.1f} ms "
+          f"wall, device busy {busy['plain']}; with DDP {prof['multihost'][0]:.1f} ms wall, device "
+          f"busy {busy['multihost']}, NCCL kernels {prof['multihost'][2]:.2f} ms on {card}",
+          flush=True)
+    return {"launches": launches, "steps": 32, "step_ms": times, "param_diff": diff,
+            "param_rel": rel, "profiled_call": prof}
+
+
+def _rank7b(rank, port, argv, out):
+    """One of phase 7b's two ranks (a spawned process): a gloo group, then
+    train_syn --multihost on cuda:0."""
+    import torch
+    import torch.distributed as dist
+
+    from eld_tpu_torch.noise.kernels import synthesize_kernel
+    from eld_tpu_torch.parallel.multihost import initialize_multihost
+    from eld_tpu_torch.tools import train_syn
+    from eld_tpu_torch.train.checkpoints import wait_for_saves
+
+    initialize_multihost(f"127.0.0.1:{port}", 2, rank, backend="gloo")
+    synthesize_kernel.launches = 0
+    t0 = time.perf_counter()
+    engine = train_syn.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    wait_for_saves()
+    if engine.writer is not None:
+        engine.writer.close()
+    dist.barrier()
+    torch.save({"params": _cpu_state(engine.model), "launches": synthesize_kernel.launches,
+                "steps": engine.iterations, "history": [h[:2] for h in engine.history],
+                "eval": engine.eval_history, "wall": wall,
+                "files": sorted(os.listdir(engine.cfg.save_dir))},
+               os.path.join(out, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def phase7b(card, tmp, traindir, evaldir):
+    """Two ranks on the one card over gloo (NCCL refuses two ranks on one
+    device): train_syn --multihost, 8 pooled f32 steps at global batch 8,
+    4 rows per rank, then the periodic eval; against a one-process replay
+    that noises each rank's rows with K1 under that rank's seed.  It runs
+    the rank logic on the card; its times are gloo's, no measure of NCCL."""
+    import multiprocessing
+
+    import torch
+
+    from eld_tpu_torch.data.loader import pool_to_device
+    from eld_tpu_torch.data.patchstore import PatchStore
+    from eld_tpu_torch.models import build_arch
+    from eld_tpu_torch.noise.kernels import synthesize_kernel
+    from eld_tpu_torch.noise.params import load_camera_params, sample_params_batch, take_rows
+    from eld_tpu_torch.train.state import create_train_state
+    from eld_tpu_torch.train.steps import fold_in, pick_batch
+
+    out = os.path.join(tmp, "ranks7b")
+    os.makedirs(out)
+    ckdir = os.path.join(tmp, "ck7b")
+    argv = ["--traindir", traindir, "--evaldir", evaldir, "--checkpoints_dir", ckdir,
+            "--name", "dp2", "--noise", "eld", "--include", "4", "-b", "8", "--epochs", "1",
+            "--eval_every", "1", "--max_dataset_size", "64", "--no-verbose", "--seed", str(SEED),
+            "--nThreads", "2", "--device", "cuda:0", "--multihost"]
+    ctx = multiprocessing.get_context("spawn")
+    port = _free_port()
+    procs = [ctx.Process(target=_rank7b, args=(r, port, argv, out)) for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + 300
+    while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
+        if any(p.exitcode not in (None, 0) for p in procs):
+            break
+        time.sleep(0.2)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join()
+    wall = time.perf_counter() - t0
+    check(all(p.exitcode == 0 for p in procs),
+          f"7b: ranks exited {[p.exitcode for p in procs]} (killed after a failure or 300 s)")
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=True) for r in range(2)]
+    for r, res in enumerate(ranks):
+        check(res["steps"] == 8 and res["launches"] == 8,
+              f"7b rank {r}: {res['steps']} steps, {res['launches']} noise kernel launches")
+        check(all(math.isfinite(v) for h in res["history"] for v in h[1].values()),
+              f"7b rank {r}: non-finite loss {res['history']}")
+    check(all(torch.equal(v, ranks[1]["params"][k]) for k, v in ranks[0]["params"].items()),
+          "7b: the two ranks' parameters differ")
+    check(ranks[0]["history"] == ranks[1]["history"], "7b: the ranks report different losses")
+    check(ranks[0]["eval"] == ranks[1]["eval"] and len(ranks[0]["eval"]) == 2,
+          f"7b: merged evals differ: {ranks[0]['eval']} vs {ranks[1]['eval']}")
+    pts = [f for f in ranks[0]["files"] if f.endswith((".pt", ".tmp"))]
+    check(pts == ["model_latest.pt"], f"7b: checkpoint files {ranks[0]['files']}")
+
+    # the replay: one process, the global batch of 8, rank r's rows 4r..4r+3
+    # noised by K1 under fold_in(fold_in(step seed, 1), r)
+    dev = torch.device("cuda")
+    pool = {"clean": pool_to_device(PatchStore(os.path.join(traindir, "SID_Sony_Raw.eps"),
+                                               size=64), dev)}
+    bank = load_camera_params(include=4, device=dev)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        model = build_arch("unet", 4, 4, base_width=32, skip_mode="split")
+    model = model.to(dev).to(memory_format=torch.channels_last)
+    state = create_train_state(model, lr=ADAM_LR)
+    noise_agree = None
+    for j in range(8):
+        seed = fold_in(SEED, j)
+        clean = pick_batch(pool, 8, seed)["clean"]
+        params = sample_params_batch(torch.Generator(device=dev).manual_seed(fold_in(seed, 0)),
+                                     bank, 8)
+        rows = [slice(4 * r, 4 * r + 4) for r in range(2)]
+        noisy = torch.cat([synthesize_kernel(fold_in(fold_in(seed, 1), r),
+                                             clean[rows[r]].contiguous(),
+                                             take_rows(params, rows[r]), "eld")
+                           for r in range(2)])
+        if j == 0:  # the ranks' seeds on the same rows, unclipped: distinct streams
+            a, b = (synthesize_kernel(fold_in(fold_in(seed, 1), r), clean[rows[0]].contiguous(),
+                                      take_rows(params, rows[0]), "eld", clip=False)
+                    for r in range(2))
+            noise_agree = float((a == b).float().mean())
+            check(noise_agree < 1e-3, f"7b: ranks 0 and 1 noise agree on {noise_agree:.3%}")
+        state.optimizer.zero_grad(set_to_none=True)
+        loss = (model(noisy) - clean).abs().mean()
+        loss.backward()
+        state.optimizer.step()
+    worst, share = _params_close(_cpu_state(model), ranks[0]["params"], steps=8)
+    evals = "; ".join(f"{name}: PSNR {res['PSNR']:.4f}, SSIM {res['SSIM']:.4f}"
+                      for _, name, res in ranks[0]["eval"])
+    print(f"[7b] two gloo ranks on one card (no measure of NCCL): train_syn --multihost, 8 pooled "
+          f"f32 steps at global batch 8 (4 per rank), noise kernel launches {ranks[0]['launches']} "
+          f"+ {ranks[1]['launches']}; parameters bitwise equal on both ranks and equal to the "
+          f"one-process replay within {worst:.3g} ({share:.5f} within 1e-6); the ranks' noise "
+          f"agrees on {noise_agree:.4%}; merged eval identical on both ranks ({evals}); one "
+          f"checkpoint set {pts}; {wall:.2f} s wall with the ranks' start-up "
+          f"(train_syn {ranks[0]['wall']:.2f} / {ranks[1]['wall']:.2f} s) on {card}", flush=True)
+    return {"launches": ranks[0]["launches"] + ranks[1]["launches"], "rank_steps": 16,
+            "max_diff": worst, "share_1e-6": share, "wall_s": wall}
+
+
+def phase7c(card, tmp, engines, ckpt_path):
+    """make_spatial_forward over [cuda:0] * S, S = 2 and 4, on a full SID
+    frame with phase 4's network against the eager forward; then
+    test_eld --mesh_spatial 2 on one card must refuse, naming the card."""
+    import torch
+
+    from eld_tpu_torch.parallel.spatial import make_spatial_forward
+    from eld_tpu_torch.tools import test_eld
+    from eld_tpu_torch.train.steps import make_eval_forward
+
+    model = engines["unet"].model.eval()
+    frame = torch.rand((1, *FULL_FRAME, 4), generator=torch.Generator().manual_seed(SEED)).cuda()
+    eager = make_eval_forward(model)
+    want = eager(frame)
+    res = {"eager_ms": cuda_ms(lambda: eager(frame), reps=5)}
+    for s in (2, 4):
+        fwd = make_spatial_forward(model, ["cuda:0"] * s, base=model.alignment())
+        got = fwd(frame)
+        err = float((got - want).abs().mean())
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()) and err < 1e-3,
+              f"7c: spatial forward S={s}: mean |err| {err} (tol 1e-3)")
+        res[f"s{s}"] = {"mean_abs_err": err, "max_abs_err": float((got - want).abs().max()),
+                        "ms": cuda_ms(lambda: fwd(frame), reps=5)}
+    try:
+        test_eld.main(["--datadir", os.path.join(tmp, "eld"), "--include", "4", "--suffix",
+                       ".npz", "--scenes", "1", "--mesh_spatial", "2", "--model_path", ckpt_path,
+                       "--device", "cuda", "--checkpoints_dir", os.path.join(tmp, "ck7c"),
+                       "--no-log", "--no-verbose"])
+        refusal = None
+    except ValueError as e:  # the refusal this phase checks for
+        refusal = str(e)
+    want_card = f"cuda:{torch.cuda.device_count()} is missing"
+    check(refusal is not None and want_card in refusal,
+          f"7c: test_eld --mesh_spatial 2 on one card did not refuse naming {want_card}: "
+          f"{refusal}")
+    print(f"[7c] full-frame {(1, *FULL_FRAME, 4)} unet f32 forward halo-sharded over [cuda:0] x "
+          f"S: " + ", ".join(f"S={s} mean |err| {res[f's{s}']['mean_abs_err']:.3g} (tol 1e-3), "
+                             f"{res[f's{s}']['ms']:.2f} ms" for s in (2, 4)) +
+          f"; eager {res['eager_ms']:.2f} ms (median of 5, CUDA events) on {card}; "
+          f"test_eld --mesh_spatial 2 refused: {refusal}", flush=True)
+    return res
+
+
+def phase7d(card, engines, pool):
+    """How long save() holds the training loop at full width (parameters and
+    Adam state), asynchronous vs synchronous, in turns; then the file an
+    asynchronous save wrote holds the state of the call after a further
+    pooled call of 10 steps ran."""
+    import dataclasses
+
+    import torch
+
+    from eld_tpu_torch.train import checkpoints as ckpt
+    from eld_tpu_torch.train.steps import fold_in
+
+    engine = engines["unet"]
+    opt = engine.state.optimizer.state_dict()["state"]
+    mb = (sum(v.numel() * v.element_size() for v in engine.model.state_dict().values())
+          + sum(t.numel() * t.element_size() for st in opt.values() for t in st.values()
+                if torch.is_tensor(t))) / 1e6
+    cfg = engine.cfg
+    stall = {"sync": [], "async": []}
+    write = []
+    for mode in ("sync", "async", "async", "sync") * 2:
+        engine.cfg = dataclasses.replace(cfg, async_ckpt=mode == "async")
+        ckpt.wait_for_saves()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.save(label=f"stall_{mode}")
+        t1 = time.perf_counter()
+        ckpt.wait_for_saves()
+        stall[mode].append((t1 - t0) * 1e3)
+        if mode == "async":
+            write.append((time.perf_counter() - t0) * 1e3)
+    engine.cfg = dataclasses.replace(cfg, async_ckpt=True)
+    want = _cpu_state(engine.model)
+    path = engine.save(label="async_check")
+    engine._scan_fn(10)(engine.state, pool, [fold_in(SEED, 30_000 + j) for j in range(10)])
+    ckpt.wait_for_saves()
+    got = torch.load(path, weights_only=True)["netG"]
+    check(all(torch.equal(got[k].float(), v) for k, v in want.items()),
+          "7d: the asynchronous file does not hold the state of the save() call")
+    moved = max(float((engine.model.state_dict()[k].float().cpu() - v).abs().max())
+                for k, v in want.items())
+    check(moved > 0, "7d: the steps after the save did not move the parameters")
+    engine.cfg = cfg
+    print(f"[7d] save() of {mb:.1f} MB (parameters + Adam state) holds the loop: synchronous "
+          f"{', '.join(f'{t:.1f}' for t in stall['sync'])} ms, asynchronous "
+          f"{', '.join(f'{t:.1f}' for t in stall['async'])} ms (the write landing "
+          f"{', '.join(f'{t:.1f}' for t in write)} ms after the call); the asynchronous file "
+          f"equals the state of the call after 10 more steps (they moved it {moved:.3g}) on "
+          f"{card}", flush=True)
+    return {"mb": mb, "stall_ms": stall, "async_write_ms": write}
+
+
 def main():
     check(len(sys.argv) == 1, f"unknown arguments {sys.argv[1:]}")
     card = phase0()
@@ -1216,12 +1629,17 @@ def main():
             "isp_ms": isp_ms, "denoise": serving, "int8": int8,
             "export": {k: {f: v[f] for f in ("export_s", "mb", "ms", "eager_ms", "err")}
                        for k, v in arts.items()}}), flush=True)
+        p7 = phase7(card, tmp, engines, p5["ckpt"])
 
     import torch
 
     from eld_tpu_torch.noise.kernels import REPLACES, SOURCE_PATH
 
-    launches = s["launches"] + pooled_launches + srgb_launches
+    launches = (s["launches"] + pooled_launches + srgb_launches + p7["7a"]["launches"]
+                + p7["7b"]["launches"])
+    # a data-parallel rank's step counts as a step: one launch each
+    steps = (s["steps"] + pooled_steps + srgb_steps + p7["7a"]["steps"]
+             + p7["7b"]["rank_steps"])
     kernels = {"kernels": [{
         "name": "noise_synth", "route": "cuda", "source": SOURCE_PATH, "replaces": REPLACES,
         "launches": launches, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
@@ -1230,7 +1648,7 @@ def main():
         "ms_smooth": k["ms_smooth"], "kernel_ms": k["kernel_ms"],
         "kernel_ms_smooth": k["kernel_ms_smooth"], "ops_ms": k["ops_ms"],
         "kernel_ms_c3": k["kernel_ms_c3"], "bound_ms_c3": k["bound_ms_c3"],
-        "launches_per_step": launches / (s["steps"] + pooled_steps + srgb_steps)}]}
+        "launches_per_step": launches / steps}]}
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,8 +2,11 @@
 
 The same dataclass and flag names as eld_tpu, so command lines carry
 across, plus an explicit ``--device`` (default ``cuda``).  The TPU-era
-flags stay parseable; the trainer refuses the ones the port does not
-implement yet (``tools/train_syn.py``) instead of ignoring them.
+flags stay parseable; the trainer refuses the one the port does not
+implement yet (``--profile``, ``tools/train_syn.py``) instead of ignoring
+it.  ``--mesh_data`` / ``--mesh_spatial`` resolve in the Engine
+(``parallel.mesh.MeshSpec.resolve``) and ``--no-async-ckpt`` makes saves
+synchronous.
 """
 
 from __future__ import annotations
@@ -88,10 +91,13 @@ class Config:
 def torch_device(name: str) -> torch.device:
     """``torch.device(name)`` for a run: raises for a CUDA device when there
     is no card (nothing falls back to the CPU), and turns TF32 off, so f32
-    matmuls and convolutions compute in f32."""
+    matmuls and convolutions compute in f32.  Under torchrun a bare
+    ``cuda`` is the rank's own card, ``cuda:LOCAL_RANK``."""
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {name}: no CUDA device is available")
+    if device.type == "cuda" and device.index is None and "LOCAL_RANK" in os.environ:
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return device

@@ -42,11 +42,15 @@ class Loader:
     """Iterates dict batches of NumPy arrays over a Dataset.
 
     ``shuffle`` uses a per-epoch seeded permutation (deterministic given
-    ``seed`` and the epoch)."""
+    ``seed`` and the epoch).  ``shard=(rank, world)`` gives a data-parallel
+    rank rows ``rank::world`` of every global batch of ``batch_size`` rows:
+    every rank shares the seed, so the permutations agree, and each loads
+    1/world of the batch (``parallel.multihost.host_shard()``)."""
 
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
                  num_workers: int = 4, seed: int = 2018, drop_last: bool = False,
-                 collate: Callable = default_collate, prefetch: int = 4):
+                 collate: Callable = default_collate, prefetch: int = 4,
+                 shard: tuple = (0, 1)):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -55,6 +59,13 @@ class Loader:
         self.drop_last = drop_last
         self.collate = collate
         self.prefetch = prefetch
+        self.shard = shard
+        if batch_size % shard[1] != 0:
+            raise ValueError(f"batch_size {batch_size} not divisible by world {shard[1]}")
+        if shard[1] > 1 and not drop_last:
+            # a trailing partial batch would split into unequal (possibly
+            # empty) per-rank pieces and desynchronize the global batch
+            raise ValueError("multi-host sharding requires drop_last=True")
         self._epoch = 0
 
     def __len__(self):
@@ -83,6 +94,9 @@ class Loader:
         batches = [idxs[i:i + self.batch_size] for i in range(0, len(idxs), self.batch_size)]
         if self.drop_last and batches and len(batches[-1]) < self.batch_size:
             batches.pop()
+        rank, world = self.shard
+        if world > 1:
+            batches = [b[rank::world] for b in batches]
 
         if self.num_workers <= 0:
             for b in batches:
@@ -264,7 +278,9 @@ def pool_to_device(store, device) -> torch.Tensor:
 
     The records are stacked into one host buffer, pinned when the device is
     a CUDA device, and copied once.  The SID clean set (1288 x 512^2 x 4
-    uint16) is 2.70 GB."""
+    uint16) is 2.70 GB.  Under data parallelism every rank holds the whole
+    pool on its card (eld_tpu replicates it over the mesh): each step picks
+    the global batch and a rank keeps its rows."""
     device = torch.device(device)
     n = len(store)
     first = torch.from_numpy(onp.ascontiguousarray(store.record(0)))

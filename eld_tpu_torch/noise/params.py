@@ -177,6 +177,11 @@ def sample_params_batch(
     )
 
 
+def take_rows(params: NoiseParams, rows) -> NoiseParams:
+    """The parameter sets of ``rows`` (an index or slice of the batch)."""
+    return _tensor_map(params, lambda t: t[rows])
+
+
 def sample_params(gen: torch.Generator, bank: CameraParamsBank, **kw) -> NoiseParams:
     """One parameter set: every field a scalar tensor (color_bias (4,))."""
     p = sample_params_batch(gen, bank, 1, **kw)

@@ -1,0 +1,61 @@
+"""The two parallel axes and how they resolve (counterpart of
+``eld_tpu/parallel/mesh.py``).
+
+eld_tpu runs one process per host and shards over that host's devices
+with a ``jax.sharding.Mesh`` of two named axes.  PyTorch runs one process
+per card, so the port maps them so:
+
+  * ``data``    -- one torch.distributed rank per card (``torchrun
+                   --nproc_per_node N ... --multihost``); each rank trains
+                   on its rows of every global batch and
+                   DistributedDataParallel averages the gradients;
+  * ``spatial`` -- the local cards of one process: the full-frame eval
+                   forward runs a halo window of the frame on each of them
+                   (``parallel/spatial.py``) and needs no collective.
+
+One process sharding a batch over several local cards (eld_tpu's
+single-process ``data > 1``) has no counterpart: PyTorch does that with
+ranks.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+DATA_AXIS = "data"
+SPATIAL_AXIS = "spatial"
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshSpec:
+    """Declarative mesh shape; -1 on the data axis means 'every rank'."""
+
+    data: int = -1
+    spatial: int = 1
+
+    def resolve(self, world: int, cards: int) -> "MeshSpec":
+        """The mesh of a run with ``world`` ranks and ``cards`` visible
+        cards.  ``data`` must be the world size (-1 resolves to it), and
+        ``spatial`` > 1 needs that many cards; neither falls back."""
+        data = world if self.data <= 0 else self.data
+        if data != world:
+            raise ValueError(
+                f"mesh data={data} needs {data} ranks, have {world}: the data axis is one "
+                f"rank per card, so launch `torchrun --nproc_per_node {data} -m "
+                f"eld_tpu_torch.tools.<entry point> ... --multihost` (or leave --mesh_data -1)")
+        spatial = max(1, self.spatial)
+        if spatial > cards and spatial > 1:
+            raise ValueError(
+                f"mesh spatial={spatial} needs {spatial} visible CUDA cards (cuda:0.."
+                f"cuda:{spatial - 1}), have {cards}: cuda:{cards} is missing")
+        return MeshSpec(data=data, spatial=spatial)
+
+
+def rank_rows(rank: int, world: int, batch: int) -> slice:
+    """Rank ``rank``'s rows of a global batch of ``batch`` rows: the
+    contiguous block [rank*b, (rank+1)*b), b = batch // world, which is what
+    eld_tpu's ``P(DATA_AXIS)`` sharding hands device ``rank``."""
+    if batch % world:
+        raise ValueError(f"a global batch of {batch} does not split over {world} ranks")
+    b = batch // world
+    return slice(rank * b, (rank + 1) * b)

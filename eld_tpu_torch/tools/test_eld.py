@@ -6,6 +6,11 @@ camera via --include), img ids [4, 9, 14] (x100) and [5, 10, 15] (x200),
 full-frame metrics with illuminance correction and the amplification
 ratio from EXIF.
 
+Full frames fit one card; ``--mesh_spatial S`` (in place of ``--chop``)
+splits each frame's height over S cards with halo windows.  Under
+``torchrun --nproc_per_node N ... --multihost`` each rank scores every N-th
+item and the metrics are merged.
+
 Usage:
   python -m eld_tpu_torch.tools.test_eld --name sid_eld --datadir ./data/ELD --chop
 """
@@ -18,6 +23,7 @@ import sys
 from eld_tpu_torch import config as config_mod
 from eld_tpu_torch.data.datasets import ELDEvalDataset
 from eld_tpu_torch.data.loader import Loader
+from eld_tpu_torch.parallel.multihost import maybe_initialize_multihost
 from eld_tpu_torch.train.engine import Engine
 
 CAMERAS = ["CanonEOS5D4", "CanonEOS70D", "CanonEOS700D", "NikonD850", "SonyA7S2"]
@@ -39,6 +45,7 @@ def main(argv=None):
     cfg = config_mod.parse(rest, train=False)
     if not (cfg.resume or cfg.model_path):
         cfg.resume = True
+    maybe_initialize_multihost(cfg)
 
     if cfg.include is not None:
         cameras = [(CAMERAS[cfg.include], SUFFIXES[cfg.include])]

@@ -6,6 +6,9 @@ Scores the 15-indoor-scene subset bucketed by exposure ratio {100, 250,
 leaves out the fixed-pattern noise region the reference documents), or
 the pairs of a ``--pairs`` file.
 
+Under ``torchrun --nproc_per_node N ... --multihost`` each rank scores
+every N-th item and the metrics are merged.
+
 Usage:
   python -m eld_tpu_torch.tools.test_sid --name sid_eld --datadir ./data/SID/Sony \\
       --model_path checkpoints/sid_eld/model_200_00257600.pt
@@ -22,6 +25,7 @@ from eld_tpu_torch import config as config_mod
 from eld_tpu_torch.core.emor import load_crf
 from eld_tpu_torch.data.datasets import SIDDataset
 from eld_tpu_torch.data.loader import Loader
+from eld_tpu_torch.parallel.multihost import maybe_initialize_multihost
 from eld_tpu_torch.data.pairs import eval_pairs_by_ratio
 from eld_tpu_torch.train.engine import Engine
 
@@ -59,6 +63,7 @@ def main(argv=None):
     cfg = config_mod.parse(rest, train=False)
     if not (cfg.resume or cfg.model_path):
         cfg.resume = True
+    maybe_initialize_multihost(cfg)
 
     engine = Engine(cfg)
     crf = load_crf() if cfg.crf else None

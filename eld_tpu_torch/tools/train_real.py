@@ -6,7 +6,8 @@ already x ratio at pack time: ``build_dataset paired``), no noise model
 anywhere, the per-step loader, the same LR schedule as ``train_syn``, and
 the same periodic SID eval.
 
-Usage:
+Usage (data-parallel over N cards: ``torchrun --nproc_per_node N -m
+eld_tpu_torch.tools.train_real ... --multihost``):
   python -m eld_tpu_torch.tools.train_real --name sid_paired --traindir ./data/Train -b 8
 """
 
@@ -23,6 +24,7 @@ from eld_tpu_torch.data.builder import store_name
 from eld_tpu_torch.data.datasets import ELDTrainDataset
 from eld_tpu_torch.data.loader import Loader
 from eld_tpu_torch.data.patchstore import PatchStore
+from eld_tpu_torch.parallel.multihost import maybe_initialize_multihost
 from eld_tpu_torch.tools.train_syn import eval_loaders, refuse_unported, train_epochs
 from eld_tpu_torch.train.engine import Engine
 
@@ -37,18 +39,14 @@ def main(argv=None):
     cfg = config_mod.parse(rest, train=True)
     cfg.noise = ""  # paired
     refuse_unported(cfg)
+    shard = maybe_initialize_multihost(cfg)
 
     input_store = PatchStore(join(ns.traindir, store_name("input", cfg.stage_in, cfg.crf)))
     target_store = PatchStore(join(ns.traindir, store_name("target", cfg.stage_out, cfg.crf)))
     train_ds = ELDTrainDataset(target_store, [input_store], rng=onp.random.default_rng(cfg.seed))
     train_loader = Loader(train_ds, batch_size=cfg.batch_size, shuffle=True,
-                          num_workers=cfg.n_threads, seed=cfg.seed, drop_last=True)
-    try:
-        evals = eval_loaders(ns.evaldir, cfg)
-    except (OSError, ValueError) as e:  # eval data is optional during training
-        evals = {}
-        print(f"[i] eval datasets unavailable: {e}", file=sys.stderr)
-
+                          num_workers=cfg.n_threads, seed=cfg.seed, drop_last=True, shard=shard)
+    evals = eval_loaders(ns.evaldir, cfg)
     engine = Engine(cfg)
     train_epochs(engine, ns.epochs, ns.eval_every, evals, train_loader)
     return engine

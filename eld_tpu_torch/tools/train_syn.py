@@ -20,6 +20,10 @@ Two other sources:
     (``--scan`` auto gives 0), the noise synthesized on them by the kernel
     at C = 3.
 
+Data-parallel over N cards: one rank per card, ``-b`` the global batch
+(each rank trains on ``-b / N`` rows of it, and holds the whole pool):
+  torchrun --nproc_per_node N -m eld_tpu_torch.tools.train_syn ... --multihost
+
 Usage:
   python -m eld_tpu_torch.tools.train_syn --name sid_eld --noise eld --include 4 \\
       --traindir ./data/Train --evaldir ./data/SID/Sony -b 8 --bf16
@@ -43,6 +47,7 @@ from eld_tpu_torch.data.loader import Loader, pool_to_device
 from eld_tpu_torch.data.pairs import eval_pairs_by_ratio
 from eld_tpu_torch.data.patchstore import PatchStore
 from eld_tpu_torch.noise.params import CAMERA_NAMES
+from eld_tpu_torch.parallel.multihost import all_hosts_agree, maybe_initialize_multihost
 from eld_tpu_torch.train.engine import Engine
 
 AUTO_SCAN = 10
@@ -92,15 +97,11 @@ def resolve_scan(scan: int, pool_bytes: int, budget_bytes: int, srgb: bool) -> i
 
 
 def refuse_unported(cfg):
-    """Raise for the options the trainers do not implement yet; each
-    message names the ROADMAP.md queue-1 item that brings it."""
-    missing = []
-    if cfg.multihost or cfg.mesh_data > 1 or cfg.mesh_spatial > 1:
-        missing.append("--multihost / --mesh_* > 1 (parallel: queue 1 #13)")
+    """Raise for the option the trainers do not implement yet, naming the
+    ROADMAP.md queue-1 item that brings it."""
     if cfg.profile:
-        missing.append("--profile (torch.profiler with the bench: queue 1 #15)")
-    if missing:
-        raise NotImplementedError("not ported yet: " + "; ".join(missing))
+        raise NotImplementedError(
+            "not ported yet: --profile (torch.profiler with the bench: queue 1 #15)")
 
 
 def srgb_stage(cfg) -> bool:
@@ -110,8 +111,22 @@ def srgb_stage(cfg) -> bool:
 
 def eval_loaders(evaldir: str, cfg) -> dict:
     """Loaders of the SID indoor-15 pairs of ratio 100 and 300, in the
-    run's stages (and CRF); raises when a file of them is missing under
-    ``evaldir``."""
+    run's stages (and CRF), or {} when a file of them is missing under
+    ``evaldir``.  The ranks decide together: the eval enters collectives,
+    so one rank missing the data must not leave the others waiting in the
+    merge."""
+    try:
+        loaders = _eval_loaders(evaldir, cfg)
+    except (OSError, ValueError) as e:  # eval data is optional during training
+        loaders = {}
+        print(f"[i] eval datasets unavailable: {e}", file=sys.stderr)
+    if not all_hosts_agree(bool(loaders)) and loaders:
+        print("[w] eval disabled: not every rank has both eval ratios", file=sys.stderr)
+        loaders = {}
+    return loaders
+
+
+def _eval_loaders(evaldir: str, cfg) -> dict:
     crf = load_crf() if cfg.crf else None
     pairs = eval_pairs_by_ratio()
     loaders = {}
@@ -143,6 +158,10 @@ def train_epochs(engine: Engine, epochs: int, eval_every: int, evals: dict, trai
                 engine.eval(evals[100], dataset_name="sid_eval_100", correct=True)
                 engine.eval(evals[300], dataset_name="sid_eval_300", correct=True)
             except Exception as e:  # noqa: BLE001 - a failed eval does not stop training
+                if engine.world > 1:
+                    # the ranks cannot go on safely after control flow
+                    # diverged inside a collective section
+                    raise
                 print(f"[w] eval failed: {e}", file=sys.stderr)
 
 
@@ -161,6 +180,7 @@ def main(argv=None):
     ns, rest = pre.parse_known_args(argv)
     cfg = config_mod.parse(rest, train=True)
     refuse_unported(cfg)
+    shard = maybe_initialize_multihost(cfg)
 
     if srgb_stage(cfg):
         stores = {"clean": PatchStore(join(ns.traindir, store_name("clean", "srgb", cfg.crf)),
@@ -185,13 +205,8 @@ def main(argv=None):
         train_ds = CleanPatchDataset(stores["clean"], device_normalize=True,
                                      rng=onp.random.default_rng(cfg.seed))
     train_loader = Loader(train_ds, batch_size=cfg.batch_size, shuffle=True,
-                          num_workers=cfg.n_threads, seed=cfg.seed, drop_last=True)
-    try:
-        evals = eval_loaders(ns.evaldir, cfg)
-    except (OSError, ValueError) as e:  # eval data is optional during training
-        evals = {}
-        print(f"[i] eval datasets unavailable: {e}", file=sys.stderr)
-
+                          num_workers=cfg.n_threads, seed=cfg.seed, drop_last=True, shard=shard)
+    evals = eval_loaders(ns.evaldir, cfg)
     engine = Engine(cfg)
     print(f"[i] using noise model {cfg.noise!r} (on-device)" if cfg.noise
           else "[i] paired mode (pre-baked noise)")

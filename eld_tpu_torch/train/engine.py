@@ -7,15 +7,22 @@ precision explicitly (no TF32: an f32 run computes in f32, and ``--bf16``
 is the fast path, autocast over f32 parameters).
 
 Eval protocol (the reference's ``models/ELD_model.py:203-307``): optional
-512-px center crop, forward (optionally 4-tile chopped), per-item
-illuminance correction, optional raw -> sRGB (``--stage_eval srgb``, gamma
-or the calibrated CRF under ``--crf``), x255 clip, PSNR/SSIM per item.
-Multi-device runs need the parallel layer (ROADMAP.md queue 1 #13) and
-are refused.
+512-px center crop, forward (optionally 4-tile chopped, or halo-sharded
+over ``--mesh_spatial`` cards), per-item illuminance correction, optional
+raw -> sRGB (``--stage_eval srgb``, gamma or the calibrated CRF under
+``--crf``), x255 clip, PSNR/SSIM per item.
+
+Under ``--multihost`` (one torch.distributed rank per card, launched by
+torchrun) the Engine trains data-parallel through a
+DistributedDataParallel wrapper of the model, stride-shards eval and test
+items over the ranks and merges the eval's metric sums in rank order, and
+rank 0 alone writes checkpoints, TensorBoard, progress and
+``best_val.json``; every rank enters ``save()``.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import time
@@ -23,6 +30,7 @@ from typing import Optional
 
 import numpy as onp
 import torch
+from torch.nn.parallel import DistributedDataParallel
 
 from eld_tpu_torch.config import Config, torch_device
 from eld_tpu_torch.core import emor, isp
@@ -33,6 +41,9 @@ from eld_tpu_torch.models.netutils import param_count
 from eld_tpu_torch.noise.params import load_camera_params
 from eld_tpu_torch.ops.correct import illuminance_correct_batch
 from eld_tpu_torch.ops.metrics import quality_assess
+from eld_tpu_torch.parallel.mesh import MeshSpec
+from eld_tpu_torch.parallel.multihost import allgather_objects, barrier, host_shard
+from eld_tpu_torch.parallel.spatial import make_spatial_forward
 from eld_tpu_torch.train import checkpoints as ckpt
 from eld_tpu_torch.train.state import create_train_state, get_learning_rate, set_learning_rate
 from eld_tpu_torch.train.steps import fold_in, make_eval_forward, make_train_scan, make_train_step
@@ -49,9 +60,9 @@ from eld_tpu_torch.utils.logging import (
 class Engine:
     def __init__(self, cfg: Config):
         self.cfg = cfg
-        if cfg.multihost or cfg.mesh_spatial > 1:
-            raise NotImplementedError("not ported yet: --multihost / --mesh_spatial > 1 "
-                                      "(parallel: ROADMAP.md queue 1 #13)")
+        self.rank, self.world = host_shard()
+        self.host0 = self.rank == 0
+        self.mesh = self._resolve_mesh(cfg)
         self.device = torch_device(cfg.device)
         self.writer = None
         self.throughput = ThroughputMeter()
@@ -86,7 +97,14 @@ class Engine:
         autocast = torch.bfloat16 if cfg.bf16 else None
         self.bank = None
         self._train_step = None
+        # the module the train step calls: under --multihost a
+        # DistributedDataParallel wrapper, which averages the gradients over
+        # the ranks; saves and loads go through self.model underneath, so
+        # the .pt keeps the reference's parameter names
+        self._forward = None
         if cfg.is_train:
+            if cfg.multihost:
+                self._forward = DistributedDataParallel(model)
             synthetic = cfg.noise not in (None, "", "none")
             if synthetic:
                 self.bank = load_camera_params(include=cfg.include, exclude=cfg.exclude,
@@ -94,16 +112,76 @@ class Engine:
             self._train_step = make_train_step(
                 model, loss=cfg.loss, noise_model=cfg.noise if synthetic else None,
                 bank=self.bank, k_mode=cfg.k_mode, autocast_dtype=autocast,
+                forward=self._forward, shard=(self.rank, self.world),
             )
-        self._fwd = make_eval_forward(model, chop=cfg.chop, autocast_dtype=autocast)
+        self._replicas = []
+        if self.mesh.spatial > 1:
+            self._fwd = self._spatial_forward(autocast)
+        else:
+            self._fwd = make_eval_forward(model, chop=cfg.chop, autocast_dtype=autocast)
 
         os.makedirs(cfg.save_dir, exist_ok=True)
-        if not cfg.no_log:
+        if not cfg.no_log and self.host0:
             self.writer = get_summary_writer(os.path.join(cfg.save_dir, "logs"))
         if cfg.resume or cfg.model_path:
             self.load(cfg.model_path, cfg.resume_epoch)
         if not cfg.no_verbose:
-            print(f"[i] arch {cfg.netG}: {param_count(model):,} params on {self.device}")
+            print(f"[i] arch {cfg.netG}: {param_count(model):,} params on {self.device}, "
+                  f"mesh data={self.mesh.data} spatial={self.mesh.spatial}")
+
+    def _resolve_mesh(self, cfg: Config) -> MeshSpec:
+        """The run's mesh, after eld_tpu's refusals (engine.py:62-87,
+        :130-139): a multi-process run needs --multihost and a process
+        group, spatial sharding needs one process and no --chop, and the
+        global batch must split over the data axis."""
+        launched = max(self.world, int(os.environ.get("WORLD_SIZE", "1")))
+        if launched > 1 and not cfg.multihost:
+            raise RuntimeError(
+                f"{launched} processes are present but cfg.multihost is not set; every rank "
+                "would load duplicate batches. Pass --multihost.")
+        if cfg.multihost and not torch.distributed.is_initialized():
+            raise RuntimeError(
+                "--multihost needs the torch.distributed process group: launch under torchrun "
+                "and call parallel.multihost.maybe_initialize_multihost(cfg) first")
+        if cfg.mesh_spatial > 1 and self.world > 1:
+            raise NotImplementedError(
+                "spatially-sharded eval is not supported across processes (eval items are "
+                "process-local); use --mesh_spatial 1 under --multihost")
+        if cfg.mesh_spatial > 1 and cfg.chop:
+            raise ValueError(
+                "--chop and --mesh_spatial>1 are mutually exclusive: spatial halo sharding "
+                "replaces the 4-tile chop for full-frame eval. Drop --chop (sharded eval "
+                "matches the chop protocol's windowing) or use --mesh_spatial 1.")
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        mesh = MeshSpec(cfg.mesh_data, cfg.mesh_spatial).resolve(self.world, cards)
+        if cfg.is_train and cfg.batch_size % mesh.data:
+            raise ValueError(
+                f"batch_size={cfg.batch_size} must be divisible by the mesh data axis "
+                f"({mesh.data} ranks); set --batchSize or --mesh_data")
+        return mesh
+
+    def _spatial_forward(self, autocast):
+        """The full-frame forward halo-sharded over cuda:0..S-1, one replica
+        of the U-Net per card (the model itself on its own card); the
+        replicas are refreshed from the model before every eval or test
+        pass (``_sync_replicas``)."""
+        here = self.device.index if self.device.index is not None else torch.cuda.current_device()
+        devices = [torch.device("cuda", i) for i in range(self.mesh.spatial)]
+        by_index = {d.index: self.model if d.index == here else copy.deepcopy(self.model).to(d)
+                    for d in devices}
+        self._replicas = [m for i, m in by_index.items() if i != here]
+
+        def apply(t):
+            with torch.autocast("cuda", dtype=autocast, enabled=autocast is not None):
+                return by_index[t.device.index](t)
+
+        return make_spatial_forward(apply, devices, base=self.model.alignment())
+
+    def _sync_replicas(self):
+        """Copy the model's weights into the spatial replicas, so they never
+        serve weights older than a training step or a load."""
+        for replica in self._replicas:
+            replica.load_state_dict(self.model.state_dict())
 
     # ---- counters ----
     @property
@@ -135,12 +213,13 @@ class Engine:
         pending = None  # (index, metrics, step, batch size) still in flight
 
         def drain(i, metrics, step_idx, bs):
-            self.throughput.tick(bs)
+            self.throughput.tick(bs * self.world)  # global patches
             values = {k: float(v) for k, v in metrics.items()}
             self.history.append((step_idx, values, time.perf_counter()))
             meters.update(values)
-            progress(i, n, f"{meters} | {self.throughput.items_per_sec:.1f} patches/s",
-                     every=10)
+            if self.host0:
+                progress(i, n, f"{meters} | {self.throughput.items_per_sec:.1f} patches/s",
+                         every=10)
             if self.writer is not None:
                 write_loss(self.writer, "train", meters, step_idx)
 
@@ -166,7 +245,8 @@ class Engine:
             self._train_scans[key] = make_train_scan(
                 self.model, loss=cfg.loss, noise_model=cfg.noise if synthetic else None,
                 bank=self.bank, k_mode=cfg.k_mode, batch=cfg.batch_size, steps_per_call=k,
-                autocast_dtype=torch.bfloat16 if cfg.bf16 else None)
+                autocast_dtype=torch.bfloat16 if cfg.bf16 else None, forward=self._forward,
+                shard=(self.rank, self.world))
         return self._train_scans[key]
 
     def train_pool(self, pool: dict, steps: int, steps_per_call: int = 10):
@@ -174,7 +254,8 @@ class Engine:
         device-resident pool ({"clean"} or {"input", "target"}, from
         ``data.loader.pool_to_device``): full ``steps_per_call``-step
         calls plus one remainder call, each step picking, augmenting and
-        noising its batch on the device.
+        noising its batch on the device.  Under --multihost every rank
+        holds the whole pool and keeps its rows of each global batch.
 
         Step i is seeded with fold_in(seed, i), as in ``train``, so a
         resumed run reproduces the picks and the noise whatever K is.
@@ -195,8 +276,9 @@ class Engine:
             values = {name: float(v) for name, v in metrics.items()}
             self.history.append((step_idx, values, time.perf_counter()))
             meters.update(values)
-            progress(i, len(launches),
-                     f"{meters} | {self.throughput.items_per_sec:.1f} patches/s", every=1)
+            if self.host0:
+                progress(i, len(launches),
+                         f"{meters} | {self.throughput.items_per_sec:.1f} patches/s", every=1)
             if self.writer is not None:
                 write_loss(self.writer, "train", meters, step_idx)
 
@@ -283,25 +365,56 @@ class Engine:
         save_png(os.path.join(d, f"m_input_{res['PSNR_in']:.2f}.png"), inp_im)
         save_png(os.path.join(d, "t_label.png"), tgt_im)
 
+    def _local_items(self, loader):
+        """This rank's stride of the items, ``(index, count, item)`` for
+        items rank, rank + world, ...  Every rank works concurrently (a
+        rank-0-only eval would park the others in the merge).  A batch-1
+        Loader that does not shuffle is indexed directly, so skipped items
+        are never decoded (full-frame raws are multi-MB); otherwise the skip
+        happens after loading."""
+        n = len(loader)
+        ds = getattr(loader, "dataset", None)
+        if (self.world > 1 and ds is not None and getattr(loader, "batch_size", None) == 1
+                and not getattr(loader, "shuffle", False)):
+            collate = getattr(loader, "collate", lambda items: items[0])
+            for i in range(self.rank, n, self.world):
+                yield i, n, collate([ds[i]])
+            return
+        for i, item in enumerate(loader):
+            if i % self.world == self.rank:
+                yield i, n, item
+
     def eval(self, loader, dataset_name: str, savedir=None, loss_key=None,
              correct: bool = True, crop: bool = True):
         """Mean metrics over ``loader``'s items.  Item i+1's raw decode runs
-        on a thread while item i is scored.
+        on a thread while item i is scored.  Under --multihost each rank
+        scores its stride of the items and the metric sums are merged in
+        rank order, so every rank returns identical means.
         With ``loss_key`` a new best value of that metric saves
         model_best_<key>_<name>.pt and then records the value."""
+        self._sync_replicas()
         meters = AverageMeters()
-        n = len(loader)
-        for i, item in readahead(enumerate(loader)):
+        for i, n, item in readahead(self._local_items(loader)):
             meters.update(self.eval_one(item, correct=correct, crop=crop, savedir=savedir))
-            progress(i, n, str(meters))
+            if self.host0:
+                progress(i, n, str(meters))
+        if self.world > 1:
+            merged = AverageMeters()
+            for part in allgather_objects({k: [meters.sums[k], meters.counts[k]]
+                                           for k in meters.keys()}):
+                for k, (total, count) in part.items():
+                    merged.sums[k] = merged.sums.get(k, 0.0) + total
+                    merged.counts[k] = merged.counts.get(k, 0) + count
+            meters = merged
         if self.writer is not None:
             write_loss(self.writer, os.path.join("eval", dataset_name), meters, self.epoch)
         self.eval_history.append((self.epoch, dataset_name, meters.as_dict()))
         if loss_key is not None and self._is_new_best(dataset_name, loss_key,
                                                       meters[loss_key]):
-            # save first: a best value recorded before a failed save would
-            # keep this quality level from ever being saved after a resume
-            self.save(label=f"best_{loss_key}_{dataset_name}")
+            # save first (and wait for the write): a best value recorded
+            # before a failed save would keep this quality level from ever
+            # being saved after a resume
+            self.save(label=f"best_{loss_key}_{dataset_name}", wait=True)
             self._record_best(dataset_name, loss_key, meters[loss_key])
         return meters
 
@@ -315,6 +428,8 @@ class Engine:
 
     def _record_best(self, dataset_name: str, key: str, value: float):
         self.best_val[f"{dataset_name}/{key}"] = float(value)
+        if not self.host0:
+            return  # the merged means agree on every rank; one writer
         with open(self._best_val_path, "w") as f:
             json.dump(self.best_val, f, indent=1)
 
@@ -331,8 +446,10 @@ class Engine:
 
     def test(self, loader, savedir=None):
         """Inference only (no targets): denoise and save previews.  A raw
-        output of an item with a white balance is previewed in sRGB."""
-        for i, item in readahead(enumerate(loader)):
+        output of an item with a white balance is previewed in sRGB.  Under
+        --multihost each rank takes its stride of the items."""
+        self._sync_replicas()
+        for i, n, item in readahead(self._local_items(loader)):
             inp = item["input"]
             if inp.ndim == 3:
                 inp = inp[None]
@@ -344,18 +461,30 @@ class Engine:
                 os.makedirs(os.path.join(savedir, name), exist_ok=True)
                 save_png(os.path.join(savedir, name, f"{self.cfg.run_name}.png"),
                          (out[0].float() * 255).clamp(0, 255).cpu().numpy())
-            progress(i, len(loader))
+            if self.host0:
+                progress(i, n)
 
     # ---- checkpoints ----
-    def save(self, label: Optional[str] = None) -> str:
+    def save(self, label: Optional[str] = None, wait: bool = False) -> str:
         """Write the reference's .pt layout {netG, opt_g, epoch, iterations}
-        as model_EEE_IIIIIIII.pt, or model_<label>.pt (synchronously)."""
-        return ckpt.save_checkpoint(self.cfg.save_dir, self.state, label)
+        as model_EEE_IIIIIIII.pt, or model_<label>.pt; asynchronously under
+        cfg.async_ckpt (``wait`` blocks until the write lands).  Every rank
+        enters; rank 0 writes (the ranks' states are identical)."""
+        if not self.host0:
+            return ckpt.checkpoint_path(self.cfg.save_dir, self.state, label)
+        path = ckpt.save_checkpoint(self.cfg.save_dir, self.state, label,
+                                    async_=self.cfg.async_ckpt)
+        if wait:
+            ckpt.wait_for_saves()
+        return path
 
     def load(self, model_path: Optional[str] = None, resume_epoch: Optional[int] = None) -> str:
         """Restore params, optimizer state, epoch and iterations from
         ``model_path``, or from the save dir's checkpoint of
-        ``resume_epoch`` (default: the newest)."""
+        ``resume_epoch`` (default: the newest).  Waits for this process's
+        saves and then for every rank, so rank 0's write has landed."""
+        ckpt.wait_for_saves()
+        barrier()
         path = model_path or ckpt.find_checkpoint(self.cfg.save_dir, resume_epoch)
         if path is None:
             raise FileNotFoundError(

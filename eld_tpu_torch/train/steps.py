@@ -17,6 +17,15 @@ from (cfg.seed, iteration) with ``fold_in``, so a resumed run sees the
 same noise and the same picks.  Each step seed is split the same way
 everywhere: ``fold_in(seed, 0)`` samples the noise parameters, 1 seeds
 the noise, 2 the pool picks and 3 the augmentation masks.
+
+Data parallelism (``shard=(rank, world)``, one rank per card): every rank
+draws the GLOBAL batch's randomness from the step seed (the noise
+parameters, and in the pool the picks and the augmentation masks) and
+keeps its own rows (``parallel.mesh.rank_rows``), so the global batch is
+the one-process run's.  The noise of a rank's rows is seeded with
+``rank_noise_seed``.  The forward is a DistributedDataParallel wrapper,
+which averages the gradients over the ranks; the reported loss is the
+mean over ranks, reduced once per call.
 """
 
 from __future__ import annotations
@@ -26,14 +35,16 @@ from typing import Dict, Optional, Sequence
 
 import numpy as onp
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from eld_tpu_torch.models.losses import init_loss
 from eld_tpu_torch.noise.kernels import synthesize_kernel
 from eld_tpu_torch.noise.model import synthesize
-from eld_tpu_torch.noise.params import CameraParamsBank, sample_params_batch
+from eld_tpu_torch.noise.params import CameraParamsBank, sample_params_batch, take_rows
 from eld_tpu_torch.ops.chop import forward_chop
+from eld_tpu_torch.parallel.mesh import rank_rows
 from eld_tpu_torch.train.state import TrainState
 
 NOISE_IMPLS = ("auto", "kernel", "plain")
@@ -72,31 +83,36 @@ def _autocast(device: torch.device, dtype: Optional[torch.dtype]):
     return torch.autocast(device.type, dtype=dtype)
 
 
-def make_train_step(
-    model: nn.Module,
-    loss: str = "l1",
-    noise_model: Optional[str] = None,
-    bank: Optional[CameraParamsBank] = None,
-    k_mode: str = "overridden",
-    noise_impl: str = "auto",
-    autocast_dtype: Optional[torch.dtype] = None,
-):
-    """Build ``step(state, batch, seed) -> metrics``; updates ``state`` in place.
+def rank_noise_seed(seed: int, rank: int = 0, world: int = 1) -> int:
+    """The noise seed of ``rank``'s rows at step seed ``seed``:
+    ``fold_in(seed, 1)`` in a one-rank run, and ``fold_in(fold_in(seed, 1),
+    rank)`` under data parallelism, so each rank draws its own stream.
+    Not ``seed + rank * c``: additive seeding is what made the TPU kernel
+    replay streams (eld_tpu/noise/kernels.py:78-85)."""
+    noise = fold_in(seed, 1)
+    return noise if world == 1 else fold_in(noise, rank)
 
-    With ``noise_model`` the batch is {"clean": (N, H, W, C)} and the noisy
-    input is synthesized on the batch's device; otherwise {"input",
-    "target"}.  ``noise_impl``: "auto" launches the fused kernel for CUDA
-    tensors and runs the plain version for CPU tensors; "kernel" is the
-    same (a CPU tensor has no kernel); "plain" runs the plain PyTorch
-    version on any device.  ``autocast_dtype`` (e.g. torch.bfloat16) runs
-    the U-Net under autocast over f32 parameters.
-    """
+
+def global_mean(values: torch.Tensor, world: int = 1) -> torch.Tensor:
+    """The mean over the ranks of each rank's ``values``, one all-reduce;
+    ``values`` itself in a one-rank run."""
+    if world == 1:
+        return values
+    out = values.detach().clone()
+    dist.all_reduce(out)
+    return out / world
+
+
+def _make_local_step(loss, noise_model, bank, k_mode, noise_impl, autocast_dtype, forward, shard):
+    """``step(state, batch, seed) -> loss``: one optimizer step on this
+    rank's rows, returning the rank's own loss (detached, on the device)."""
     synthetic = noise_model is not None
     if synthetic and bank is None:
         raise ValueError("synthetic training needs a CameraParamsBank")
     if noise_impl not in NOISE_IMPLS:
         raise ValueError(f"noise_impl must be one of {NOISE_IMPLS}, got {noise_impl!r}")
     loss_fn = init_loss(loss)
+    rank, world = shard
     gens: Dict[torch.device, torch.Generator] = {}
 
     def generator(device, seed):
@@ -106,15 +122,18 @@ def make_train_step(
         return gen.manual_seed(seed)
 
     def make_noisy(seed, clean):
-        nparams = sample_params_batch(generator(clean.device, fold_in(seed, 0)), bank,
-                                      clean.shape[0], k_mode=k_mode)
-        noise_seed = fold_in(seed, 1)
+        n = clean.shape[0] * world  # the global batch's parameters, then this rank's rows
+        nparams = sample_params_batch(generator(clean.device, fold_in(seed, 0)), bank, n,
+                                      k_mode=k_mode)
+        if world > 1:
+            nparams = take_rows(nparams, rank_rows(rank, world, n))
+        noise_seed = rank_noise_seed(seed, rank, world)
         if noise_impl == "plain":
             return synthesize(generator(clean.device, noise_seed), clean, nparams,
                               model=noise_model, clip=True)
         return synthesize_kernel(noise_seed, clean, nparams, model=noise_model, clip=True)
 
-    def step(state: TrainState, batch, seed: int):
+    def step(state: TrainState, batch, seed: int) -> torch.Tensor:
         if synthetic:
             clean = to_f32(batch["clean"]).contiguous()
             with torch.no_grad():
@@ -127,14 +146,49 @@ def make_train_step(
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
         with _autocast(noisy.device, autocast_dtype):
-            pred = state.model(noisy)
+            pred = (state.model if forward is None else forward)(noisy)
         loss_val = loss_fn(pred.float(), target)
         loss_val.backward()
         state.optimizer.step()
         state.step += 1
-        return {"Pixel": loss_val.detach()}
+        return loss_val.detach()
 
     return step
+
+
+def make_train_step(
+    model: nn.Module,
+    loss: str = "l1",
+    noise_model: Optional[str] = None,
+    bank: Optional[CameraParamsBank] = None,
+    k_mode: str = "overridden",
+    noise_impl: str = "auto",
+    autocast_dtype: Optional[torch.dtype] = None,
+    forward: Optional[nn.Module] = None,
+    shard: tuple = (0, 1),
+):
+    """Build ``step(state, batch, seed) -> metrics``; updates ``state`` in place.
+
+    With ``noise_model`` the batch is {"clean": (N, H, W, C)} and the noisy
+    input is synthesized on the batch's device; otherwise {"input",
+    "target"}.  ``noise_impl``: "auto" launches the fused kernel for CUDA
+    tensors and runs the plain version for CPU tensors; "kernel" is the
+    same (a CPU tensor has no kernel); "plain" runs the plain PyTorch
+    version on any device.  ``autocast_dtype`` (e.g. torch.bfloat16) runs
+    the U-Net under autocast over f32 parameters.
+
+    ``shard=(rank, world)``: the batch holds this rank's N rows of a global
+    batch of N * world, ``forward`` is the DistributedDataParallel wrapper
+    of ``state.model`` the step calls (default: ``state.model``), and
+    "Pixel" is the mean over the ranks (see the module docstring).
+    """
+    step = _make_local_step(loss, noise_model, bank, k_mode, noise_impl, autocast_dtype,
+                            forward, shard)
+
+    def reported(state: TrainState, batch, seed: int):
+        return {"Pixel": global_mean(step(state, batch, seed), shard[1])}
+
+    return reported
 
 
 def augment_masks(generator: torch.Generator, n: int):
@@ -168,16 +222,21 @@ def _gather_rows(pool: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return pool[idx]
 
 
-def pick_batch(pool: Dict[str, torch.Tensor], batch: int, seed: int):
+def pick_batch(pool: Dict[str, torch.Tensor], batch: int, seed: int,
+               rows: Optional[slice] = None):
     """One step's batch from a device-resident pool: ``batch`` rows picked
     uniformly with replacement, the same rows from every entry (paired
-    pools stay aligned), converted to f32, then jointly augmented."""
+    pools stay aligned), converted to f32, then jointly augmented.  With
+    ``rows`` only those rows of the picked batch (a data-parallel rank's)
+    are gathered and augmented."""
     first = next(iter(pool.values()))
     dev = first.device
     gen = torch.Generator(device=dev).manual_seed(fold_in(seed, 2))
     idx = torch.randint(0, first.shape[0], (batch,), generator=gen, device=dev)
-    out = {k: to_f32(_gather_rows(v, idx)) for k, v in pool.items()}
     masks = augment_masks(torch.Generator(device=dev).manual_seed(fold_in(seed, 3)), batch)
+    if rows is not None:
+        idx, masks = idx[rows], tuple(m[rows] for m in masks)
+    out = {k: to_f32(_gather_rows(v, idx)) for k, v in pool.items()}
     return dict(zip(out, augment_batch(list(out.values()), *masks)))
 
 
@@ -190,6 +249,8 @@ def make_train_scan(
     batch: int = 16,
     steps_per_call: int = 10,
     autocast_dtype: Optional[torch.dtype] = None,
+    forward: Optional[nn.Module] = None,
+    shard: tuple = (0, 1),
 ):
     """K train steps per call over a device-resident patch pool.
 
@@ -200,23 +261,37 @@ def make_train_scan(
     with ``pick_batch(pool, batch, seeds[j])`` and then is exactly
     ``make_train_step``'s step on that batch with ``seeds[j]``.  Metrics
     are the mean and the last of the K losses, left on the device.
+    ``batch`` is the global batch; under ``shard=(rank, world)`` each step
+    keeps the rank's rows of it, and the K losses are averaged over the
+    ranks in one all-reduce per call.
 
     The K steps run as a host loop of eager launches.  They are not
     captured in a CUDA graph: the noise kernel takes its seed as a host
     argument, so a captured graph would replay one seed's noise every step.
     """
-    step = make_train_step(model, loss=loss, noise_model=noise_model, bank=bank,
-                           k_mode=k_mode, autocast_dtype=autocast_dtype)
+    step = _make_local_step(loss, noise_model, bank, k_mode, "auto", autocast_dtype, forward,
+                            shard)
+    rows = rank_rows(*shard, batch) if shard[1] > 1 else None
 
     def multi(state: TrainState, pool: Dict[str, torch.Tensor], seeds: Sequence[int]):
         if len(seeds) != steps_per_call:
             raise ValueError(f"{len(seeds)} seeds for {steps_per_call} steps per call")
-        losses = [step(state, pick_batch(pool, batch, seed), seed)["Pixel"]
-                  for seed in seeds]
-        losses = torch.stack(losses)
+        losses = torch.stack([step(state, pick_batch(pool, batch, seed, rows), seed)
+                              for seed in seeds])
+        losses = global_mean(losses, shard[1])
         return {"Pixel": losses.mean(), "PixelLast": losses[-1]}
 
     return multi
+
+
+def edge_pad(x: torch.Tensor, hp: int, wp: int) -> torch.Tensor:
+    """Replicate-pad the (H, W) dims of an NHWC batch up to (hp, wp), on
+    the NCHW view."""
+    h, w = x.shape[1], x.shape[2]
+    if (hp, wp) == (h, w):
+        return x
+    padded = F.pad(x.permute(0, 3, 1, 2), (0, wp - w, 0, hp - h), mode="replicate")
+    return padded.permute(0, 2, 3, 1)
 
 
 def make_eval_forward(model: nn.Module, chop: bool = False,
@@ -242,8 +317,6 @@ def make_eval_forward(model: nn.Module, chop: bool = False,
         hp, wp = -(-h // base) * base, -(-w // base) * base
         if (hp, wp) == (h, w):
             return apply(x)
-        # replicate-pad the trailing (H, W) dims of the NCHW view
-        padded = F.pad(x.permute(0, 3, 1, 2), (0, wp - w, 0, hp - h), mode="replicate")
-        return apply(padded.permute(0, 2, 3, 1))[:, :h, :w]
+        return apply(edge_pad(x, hp, wp))[:, :h, :w]
 
     return fwd

@@ -1,5 +1,6 @@
-"""The port's noise kernel, pooled trainer, eval forward, ISP and serving
-artifacts on the card (marked ``cuda``; skipped where there is none).
+"""The port's noise kernel, pooled trainer, eval forward, ISP, serving
+artifacts, spatial forward, data-parallel picks and asynchronous saves on
+the card (marked ``cuda``; skipped where there is none).
 
 This file imports neither JAX nor eld_tpu, so it runs on a machine that
 has the card and torch but not the JAX package's dependencies:
@@ -22,8 +23,11 @@ from eld_tpu_torch.models import build_arch
 from eld_tpu_torch.noise.kernels import kernel_draws, synthesize_kernel
 from eld_tpu_torch.noise.model import noise_core
 from eld_tpu_torch.noise.params import load_camera_params, sample_params_batch
+from eld_tpu_torch.parallel.mesh import rank_rows
+from eld_tpu_torch.parallel.spatial import make_spatial_forward
+from eld_tpu_torch.train import checkpoints as ckpt
 from eld_tpu_torch.train.engine import Engine
-from eld_tpu_torch.train.steps import make_eval_forward
+from eld_tpu_torch.train.steps import make_eval_forward, pick_batch
 
 
 @pytest.fixture
@@ -172,3 +176,60 @@ def test_artifact_exported_on_the_cpu_serves_on_the_card(cuda_device, tmp_path, 
         got = on_card(x.to(cuda_device))
         assert got.device.type == "cuda"
         assert float((got.cpu() - on_cpu(x)).abs().max()) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [2, 4])
+def test_spatial_forward_on_the_card(cuda_device, s):
+    """The halo-sharded forward over S replicas on the one card: within the
+    chop protocol's bound (mean 1e-3) of the eager forward, and equal to
+    the same sharding on the CPU within 1e-4 (cuDNN's summation order)."""
+    torch.manual_seed(0)
+    model = build_arch("unet", 4, 4, base_width=8, skip_mode="split").eval()
+    x = torch.from_numpy(onp.random.default_rng(3).random((1, 232, 344, 4), dtype=onp.float32))
+    cpu = make_spatial_forward(model, ["cpu"] * s, base=model.alignment())(x)
+    card_model = copy.deepcopy(model).to(cuda_device)
+    card = make_spatial_forward(card_model, [cuda_device] * s, base=model.alignment())(
+        x.to(cuda_device))
+    eager = make_eval_forward(card_model)(x.to(cuda_device))
+    assert card.shape == x.shape and card.device.type == "cuda"
+    assert float((card - eager).abs().mean()) < 1e-3
+    assert float((card.cpu() - cpu).abs().max()) < 1e-4
+
+
+@pytest.mark.cuda
+def test_rank_rows_of_a_pooled_batch_on_the_card(cuda_device):
+    recs = onp.random.default_rng(8).integers(0, 65535, (6, 16, 16, 4), dtype=onp.uint16)
+    pool = {"clean": torch.from_numpy(recs).to(cuda_device)}
+    full = pick_batch(pool, 4, 123)["clean"]
+    for r in range(2):
+        assert torch.equal(pick_batch(pool, 4, 123, rank_rows(r, 2, 4))["clean"],
+                           full[2 * r:2 * r + 2])
+
+
+@pytest.mark.cuda
+def test_async_save_on_the_card_writes_the_state_of_the_call(cuda_device, tmp_path):
+    """The background write holds the parameters and Adam state of the
+    save() call, though two more steps updated them in place on the card
+    before it landed."""
+    recs = onp.random.default_rng(7).integers(0, 65535, (6, 32, 32, 4), dtype=onp.uint16)
+    with PatchStoreWriter(str(tmp_path / "s"), recs.shape[1:], recs.dtype) as w:
+        for r in recs:
+            w.append(r)
+    pool = {"clean": pool_to_device(PatchStore(str(tmp_path / "s")), cuda_device)}
+    eng = Engine(Config(device="cuda", noise="eld", include=4, base_width=8, batch_size=2,
+                        is_train=True, checkpoints_dir=str(tmp_path), name="a",
+                        no_verbose=True, no_log=True))
+    eng.train_pool(pool, steps=2, steps_per_call=2)
+    want = {k: v.detach().cpu().clone() for k, v in eng.model.state_dict().items()}
+    want_opt = {i: {k: t.detach().cpu().clone() for k, t in st.items()}
+                for i, st in eng.state.optimizer.state_dict()["state"].items()}
+    path = eng.save(label="async")
+    eng.train_pool(pool, steps=2, steps_per_call=2)
+    ckpt.wait_for_saves()
+    got = torch.load(path, weights_only=True)
+    assert all(torch.equal(got["netG"][k], v) for k, v in want.items())
+    assert all(torch.equal(got["opt_g"]["state"][i][k], t)
+               for i, st in want_opt.items() for k, t in st.items())
+    assert got["iterations"] == 2
+    assert not all(torch.equal(v, eng.model.state_dict()[k].cpu()) for k, v in want.items())

@@ -386,12 +386,13 @@ def test_engine_eval_matches_jax_engine_on_one_checkpoint(tmp_path, monkeypatch)
 
 
 def test_unported_eval_options_raise_and_test_writes_previews(tmp_path):
-    """Multi-device options raise naming their queue item; Engine.test
-    previews a raw output as packed RGBG, or in sRGB through the ISP when
-    the item carries a white balance."""
-    for kw in ({"mesh_spatial": 2}, {"multihost": True}):
-        with pytest.raises(NotImplementedError, match="queue 1 #13"):
-            Engine(_cfg(tmp_path, "u", **kw))
+    """Multi-device options without their cards or their process group
+    raise; Engine.test previews a raw output as packed RGBG, or in sRGB
+    through the ISP when the item carries a white balance."""
+    with pytest.raises(ValueError, match="mesh spatial=2 needs 2 visible CUDA cards"):
+        Engine(_cfg(tmp_path, "u", mesh_spatial=2))
+    with pytest.raises(RuntimeError, match="process group"):
+        Engine(_cfg(tmp_path, "u", multihost=True))
     eng = Engine(_cfg(tmp_path, "t"))
     items = [{"input": onp.random.default_rng(9).random((32, 32, 4), dtype=onp.float32),
               "fn": "a.npz"}]

@@ -23,6 +23,7 @@ from eld_tpu_torch.data.patchstore import PatchStore, PatchStoreWriter
 from eld_tpu_torch.models import build_arch
 from eld_tpu_torch.noise.params import load_camera_params
 from eld_tpu_torch.tools import train_syn
+from eld_tpu_torch.train.checkpoints import wait_for_saves
 from eld_tpu_torch.train.engine import Engine
 from eld_tpu_torch.train.state import create_train_state
 from eld_tpu_torch.train.steps import (
@@ -159,6 +160,7 @@ def test_train_pool_launch_split_counters_and_saves(tmp_path):
     assert [h[0] for h in eng.history] == [3, 6, 7]
     assert all(set(h[1]) == {"Pixel", "PixelLast"} for h in eng.history)
     assert sorted(eng._train_scans) == [(1, 2), (3, 2)]
+    wait_for_saves()
     assert {"model_001_00000007.pt", "model_latest.pt"} <= set(os.listdir(eng.cfg.save_dir))
     fns = dict(eng._train_scans)
     eng.train_pool(pool, steps=7, steps_per_call=3)
