@@ -1,12 +1,11 @@
 """Typed configuration + CLI bridge (counterpart of ``eld_tpu/config.py``).
 
 The same dataclass and flag names as eld_tpu, so command lines carry
-across, plus an explicit ``--device`` (default ``cuda``).  The TPU-era
-flags stay parseable; the trainer refuses the one the port does not
-implement yet (``--profile``, ``tools/train_syn.py``) instead of ignoring
-it.  ``--mesh_data`` / ``--mesh_spatial`` resolve in the Engine
-(``parallel.mesh.MeshSpec.resolve``) and ``--no-async-ckpt`` makes saves
-synchronous.
+across, plus an explicit ``--device`` (default ``cuda``).  ``--profile``
+writes a torch.profiler trace of the first train steps under
+``save_dir/profile`` (``train.engine.Engine``).  ``--mesh_data`` /
+``--mesh_spatial`` resolve in the Engine (``parallel.mesh.MeshSpec.resolve``)
+and ``--no-async-ckpt`` makes saves synchronous.
 """
 
 from __future__ import annotations
@@ -67,7 +66,7 @@ class Config:
     skip_bf16: bool = False    # store U-Net skip activations in bf16
     upsample: str = "convt"    # "d2s": 1x1-conv + depth-to-space (same weights)
     k_mode: str = "overridden"  # noise K sampling: overridden|calibrated
-    profile: bool = False
+    profile: bool = False      # torch.profiler trace of the first train steps
     async_ckpt: bool = True
     multihost: bool = False
 

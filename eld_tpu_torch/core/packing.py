@@ -1,6 +1,7 @@
-"""CFA -> planar packing, NumPy only (a copy of the host half of
-``eld_tpu/core/packing.py``, carried here because importing eld_tpu
-imports JAX).
+"""CFA <-> planar packing (a copy of ``eld_tpu/core/packing.py``, carried
+here because importing eld_tpu imports JAX).  Packing runs on NumPy
+arrays (the host data pipeline); the unpackers take NumPy arrays or torch
+tensors (the demosaic runs them on the device).
 
 Channel conventions follow the ELD reference so calibrated noise
 parameters and metrics line up: Bayer -> 4 channels (R, G1, B, G2), X-Trans
@@ -10,6 +11,7 @@ parameters and metrics line up: Bayer -> 4 channels (R, G1, B, G2), X-Trans
 from __future__ import annotations
 
 import numpy as onp
+import torch
 
 WHITE_POINT = 16383  # 14-bit sensors used by SID / ELD
 
@@ -20,6 +22,23 @@ def pack_bayer(cfa, offsets=((0, 0), (0, 1), (1, 1), (1, 0))):
     H = cfa.shape[0] - cfa.shape[0] % 2
     W = cfa.shape[1] - cfa.shape[1] % 2
     return onp.stack([cfa[r:H:2, c:W:2] for (r, c) in offsets], axis=-1).astype(onp.float32)
+
+
+def _zeros(like, shape):
+    """f32 zeros of ``shape`` beside ``like``: a tensor on its device, or
+    a NumPy array."""
+    if isinstance(like, torch.Tensor):
+        return torch.zeros(shape, dtype=torch.float32, device=like.device)
+    return onp.zeros(shape, dtype=onp.float32)
+
+
+def unpack_bayer(img, offsets=((0, 0), (0, 1), (1, 1), (1, 0))):
+    """Inverse of :func:`pack_bayer`: (h, w, 4) -> (2h, 2w) f32 mosaic."""
+    h, w = img.shape[0], img.shape[1]
+    cfa = _zeros(img, (2 * h, 2 * w))
+    for ch, (r, c) in enumerate(offsets):
+        cfa[r::2, c::2] = img[..., ch]
+    return cfa
 
 
 # X-Trans 6x6 super-cell sampling map, channel -> list of
@@ -72,6 +91,21 @@ def pack_xtrans(cfa):
             plane = cfa[mr:H:3, mc:W:3]
         chans.append(plane)
     return onp.stack(chans, axis=-1).astype(onp.float32)
+
+
+def unpack_xtrans(img):
+    """Inverse of :func:`pack_xtrans`: (h, w, 9) -> (3h, 3w) f32 mosaic."""
+    h, w = img.shape[0], img.shape[1]
+    H, W = 3 * h, 3 * w
+    cfa = _zeros(img, (H, W))
+    for ch in range(9):
+        if ch in _XTRANS_QUAD:
+            for (mr, mc, pr, pc) in _XTRANS_QUAD[ch]:
+                cfa[mr:H:6, mc:W:6] = img[pr::2, pc::2, ch]
+        else:
+            mr, mc = _XTRANS_TRI[ch]
+            cfa[mr:H:3, mc:W:3] = img[..., ch]
+    return cfa
 
 
 def normalize_bayer(packed, black_level, white_point=WHITE_POINT):

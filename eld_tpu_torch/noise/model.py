@@ -13,8 +13,9 @@ Counterpart of ``eld_tpu/noise/model.py``; per image, for clean y in [0,1]:
     out  = z * ratio / saturation_level
 
 It is split into a deterministic core, ``noise_core``, that takes every
-random draw as an argument, and a thin sampling wrapper,
-``synthesize``, that makes the draws on a ``torch.Generator``.  The core
+random draw as an argument, and thin sampling wrappers, ``synthesize``
+(a batch) and ``apply_noise`` (one image), that make the draws on a
+``torch.Generator``.  The core
 is what the tests hold exactly against JAX (fed JAX's own draws) and
 what the CUDA kernel's own draws are checked through; ``synthesize`` is
 the kernel's plain version.  Images are NHWC throughout.
@@ -22,6 +23,7 @@ the kernel's plain version.  Images are NHWC throughout.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict
 
 import torch
@@ -140,6 +142,21 @@ def sample_draws(gen: torch.Generator, clean: torch.Tensor, p: NoiseParams,
     if "q" in model:
         draws["quant_u"] = rand(shape) - 0.5
     return draws
+
+
+def apply_noise(gen: torch.Generator, y: torch.Tensor, p: NoiseParams, model: str = "g",
+                poisson: str = "fast") -> torch.Tensor:
+    """Add physics-based noise to one clean packed-raw image (H, W, C) in
+    [0, 1]; ``p`` holds one image's parameters (scalars, color_bias (C,)).
+    ``poisson``: "fast" (the hybrid sampler) or "exact" (``torch.poisson``).
+    Returns the noisy image NOT clipped (callers clip, as eld_tpu's
+    ``apply_noise`` leaves it, mirroring ``sid_dataset.py:277``)."""
+    def row(t):  # one image's field as a batch of one
+        return torch.as_tensor(t, dtype=torch.float32, device=y.device).reshape(1, -1)
+
+    one = NoiseParams(**{f.name: row(getattr(p, f.name)) for f in dataclasses.fields(p)})
+    clean = y.float()[None]
+    return noise_core(clean, one, model, sample_draws(gen, clean, one, model, poisson))[0]
 
 
 def synthesize(gen: torch.Generator, clean: torch.Tensor, params: NoiseParams,

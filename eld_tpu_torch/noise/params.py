@@ -70,6 +70,11 @@ def _select(names, include=None, exclude=None):
     return names
 
 
+def selected_cameras(cameras=None, include=None, exclude=None):
+    """Camera names a bank built with the same arguments contains."""
+    return tuple(_select(cameras or CAMERA_NAMES, include, exclude))
+
+
 def _pad_rows(a: onp.ndarray, n: int) -> onp.ndarray:
     if a.shape[0] >= n:
         return a[:n]

@@ -22,6 +22,8 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 DATA_AXIS = "data"
 SPATIAL_AXIS = "spatial"
 
@@ -49,6 +51,25 @@ class MeshSpec:
                 f"mesh spatial={spatial} needs {spatial} visible CUDA cards (cuda:0.."
                 f"cuda:{spatial - 1}), have {cards}: cuda:{cards} is missing")
         return MeshSpec(data=data, spatial=spatial)
+
+
+def spatial_devices(device, spatial: int, cards: int) -> list:
+    """The ``spatial`` cards a halo-sharded forward runs on: the run's own
+    card ``cuda:k`` and the ones after it, ``cuda:k .. cuda:k+S-1``.
+    Refuses a device that is not a card, and a range past the ``cards``
+    visible ones; neither falls back."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(
+            f"--mesh_spatial {spatial} shards the forward over CUDA cards, but --device is "
+            f"{device}: pass --device cuda[:k] (the first of the {spatial} cards) or "
+            "--mesh_spatial 1")
+    first = torch.cuda.current_device() if device.index is None else device.index
+    if first + spatial > cards:
+        raise ValueError(
+            f"mesh spatial={spatial} from --device cuda:{first} needs cuda:{first}.."
+            f"cuda:{first + spatial - 1}, have {cards} visible cards: cuda:{cards} is missing")
+    return [torch.device("cuda", first + i) for i in range(spatial)]
 
 
 def rank_rows(rank: int, world: int, batch: int) -> slice:

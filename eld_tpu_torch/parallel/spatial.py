@@ -3,7 +3,7 @@
 
 The frame's height is split into S slabs, one per card: each card runs the
 network on its slab plus an overlap window (``halo``) and keeps only its
-own rows, which are stitched on the first card.  The window arithmetic is
+own rows, which are stitched on the input's device.  The window arithmetic is
 eld_tpu's: H is edge-padded up to ``S * base`` and W up to ``base``,
 windows are clamped at the true frame borders (border cards see the real
 image edge, as the 4-tile chop's corner-anchored tiles do), and the
@@ -39,7 +39,7 @@ def make_spatial_forward(apply: Callable[[torch.Tensor], torch.Tensor],
     (the caller keeps a replica of the network on each card; ``apply``
     picks the one on the window's device).  ``devices`` may repeat a
     device.  ``base`` is the network's spatial alignment
-    (``model.alignment()``).  The output lies on ``devices[0]``."""
+    (``model.alignment()``).  The output lies on the input's device."""
     devices = [torch.device(d) for d in devices]
     s = len(devices)
     halo = spatial_halo(base) if halo is None else halo
@@ -47,7 +47,7 @@ def make_spatial_forward(apply: Callable[[torch.Tensor], torch.Tensor],
 
     @torch.no_grad()
     def fwd(x: torch.Tensor) -> torch.Tensor:
-        h, w = x.shape[1], x.shape[2]
+        h, w, home = x.shape[1], x.shape[2], x.device
         hp = -(-h // quantum) * quantum
         wp = -(-w // base) * base
         x = edge_pad(x, hp, wp)
@@ -59,6 +59,6 @@ def make_spatial_forward(apply: Callable[[torch.Tensor], torch.Tensor],
             out = apply(x[:, start:start + win].to(dev, non_blocking=True))
             offset = i * slab - start
             rows.append(out[:, offset:offset + slab])
-        return torch.cat([r.to(devices[0]) for r in rows], dim=1)[:, :h, :w]
+        return torch.cat([r.to(home) for r in rows], dim=1)[:, :h, :w]
 
     return fwd

@@ -25,7 +25,7 @@ from eld_tpu_torch.data.datasets import ELDTrainDataset
 from eld_tpu_torch.data.loader import Loader
 from eld_tpu_torch.data.patchstore import PatchStore
 from eld_tpu_torch.parallel.multihost import maybe_initialize_multihost
-from eld_tpu_torch.tools.train_syn import eval_loaders, refuse_unported, train_epochs
+from eld_tpu_torch.tools.train_syn import eval_loaders, train_epochs
 from eld_tpu_torch.train.engine import Engine
 
 
@@ -38,7 +38,6 @@ def main(argv=None):
     ns, rest = pre.parse_known_args(argv)
     cfg = config_mod.parse(rest, train=True)
     cfg.noise = ""  # paired
-    refuse_unported(cfg)
     shard = maybe_initialize_multihost(cfg)
 
     input_store = PatchStore(join(ns.traindir, store_name("input", cfg.stage_in, cfg.crf)))

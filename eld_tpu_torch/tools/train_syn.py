@@ -96,14 +96,6 @@ def resolve_scan(scan: int, pool_bytes: int, budget_bytes: int, srgb: bool) -> i
     return AUTO_SCAN
 
 
-def refuse_unported(cfg):
-    """Raise for the option the trainers do not implement yet, naming the
-    ROADMAP.md queue-1 item that brings it."""
-    if cfg.profile:
-        raise NotImplementedError(
-            "not ported yet: --profile (torch.profiler with the bench: queue 1 #15)")
-
-
 def srgb_stage(cfg) -> bool:
     """Whether the run trains in sRGB (on 3-channel patches)."""
     return cfg.stage_in == "srgb" or cfg.stage_out == "srgb"
@@ -179,7 +171,6 @@ def main(argv=None):
                           "memory, else 0")
     ns, rest = pre.parse_known_args(argv)
     cfg = config_mod.parse(rest, train=True)
-    refuse_unported(cfg)
     shard = maybe_initialize_multihost(cfg)
 
     if srgb_stage(cfg):

@@ -12,11 +12,16 @@ over ``--mesh_spatial`` cards), per-item illuminance correction, optional
 raw -> sRGB (``--stage_eval srgb``, gamma or the calibrated CRF under
 ``--crf``), x255 clip, PSNR/SSIM per item.
 
+``--profile`` records a torch.profiler trace (CPU and, on a card, CUDA
+activity) of epoch 0's first ``min(8, n)`` steps on the per-step path and
+of ``train_pool``'s first call on the pooled one, to
+``save_dir/profile/<train|train_pool>.pt.trace.json``.
+
 Under ``--multihost`` (one torch.distributed rank per card, launched by
 torchrun) the Engine trains data-parallel through a
 DistributedDataParallel wrapper of the model, stride-shards eval and test
 items over the ranks and merges the eval's metric sums in rank order, and
-rank 0 alone writes checkpoints, TensorBoard, progress and
+rank 0 alone writes checkpoints, TensorBoard, progress, traces and
 ``best_val.json``; every rank enters ``save()``.
 """
 
@@ -41,7 +46,7 @@ from eld_tpu_torch.models.netutils import param_count
 from eld_tpu_torch.noise.params import load_camera_params
 from eld_tpu_torch.ops.correct import illuminance_correct_batch
 from eld_tpu_torch.ops.metrics import quality_assess
-from eld_tpu_torch.parallel.mesh import MeshSpec
+from eld_tpu_torch.parallel.mesh import MeshSpec, spatial_devices
 from eld_tpu_torch.parallel.multihost import allgather_objects, barrier, host_shard
 from eld_tpu_torch.parallel.spatial import make_spatial_forward
 from eld_tpu_torch.train import checkpoints as ckpt
@@ -62,8 +67,8 @@ class Engine:
         self.cfg = cfg
         self.rank, self.world = host_shard()
         self.host0 = self.rank == 0
-        self.mesh = self._resolve_mesh(cfg)
         self.device = torch_device(cfg.device)
+        self.mesh = self._resolve_mesh(cfg)
         self.writer = None
         self.throughput = ThroughputMeter()
         # (iteration, {metric: value}, host time the values were read)
@@ -154,6 +159,9 @@ class Engine:
                 "matches the chop protocol's windowing) or use --mesh_spatial 1.")
         cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
         mesh = MeshSpec(cfg.mesh_data, cfg.mesh_spatial).resolve(self.world, cards)
+        # the cards of the spatial forward, refused before the model moves
+        self._spatial_devices = (spatial_devices(self.device, mesh.spatial, cards)
+                                 if mesh.spatial > 1 else [])
         if cfg.is_train and cfg.batch_size % mesh.data:
             raise ValueError(
                 f"batch_size={cfg.batch_size} must be divisible by the mesh data axis "
@@ -161,15 +169,15 @@ class Engine:
         return mesh
 
     def _spatial_forward(self, autocast):
-        """The full-frame forward halo-sharded over cuda:0..S-1, one replica
-        of the U-Net per card (the model itself on its own card); the
-        replicas are refreshed from the model before every eval or test
-        pass (``_sync_replicas``)."""
-        here = self.device.index if self.device.index is not None else torch.cuda.current_device()
-        devices = [torch.device("cuda", i) for i in range(self.mesh.spatial)]
-        by_index = {d.index: self.model if d.index == here else copy.deepcopy(self.model).to(d)
-                    for d in devices}
-        self._replicas = [m for i, m in by_index.items() if i != here]
+        """The full-frame forward halo-sharded over the S cards that start at
+        the Engine's own, cuda:k..k+S-1, one replica of the U-Net per card
+        (the model itself on its own card); the output comes back on the
+        input's card.  The replicas are refreshed from the model before
+        every eval or test pass (``_sync_replicas``)."""
+        devices = self._spatial_devices
+        by_index = {d.index: self.model if i == 0 else copy.deepcopy(self.model).to(d)
+                    for i, d in enumerate(devices)}
+        self._replicas = [by_index[d.index] for d in devices[1:]]
 
         def apply(t):
             with torch.autocast("cuda", dtype=autocast, enabled=autocast is not None):
@@ -223,7 +231,12 @@ class Engine:
             if self.writer is not None:
                 write_loss(self.writer, "train", meters, step_idx)
 
+        # --profile: the first min(8, n) steps of epoch 0, as eld_tpu traces
+        prof = self._start_trace()
         for i, batch in enumerate(prefetch_to_device(loader, self.device)):
+            if prof is not None and i == min(8, n):
+                self._stop_trace(prof, "train")
+                prof = None
             # seed = f(seed, iteration): a resumed run sees the same noise
             metrics = self._train_step(self.state, batch, fold_in(cfg.seed, host_step))
             bs = next(iter(batch.values())).shape[0]
@@ -231,6 +244,8 @@ class Engine:
                 drain(*pending)
             pending = (i, metrics, host_step, bs)
             host_step += 1
+        if prof is not None:
+            self._stop_trace(prof, "train")
         if pending is not None:
             drain(*pending)
         self._end_epoch(t0)
@@ -282,9 +297,15 @@ class Engine:
             if self.writer is not None:
                 write_loss(self.writer, "train", meters, step_idx)
 
+        # --profile: the first call of epoch 0 (eld_tpu traces only the
+        # per-step path; the pooled one is the port's default)
+        prof = self._start_trace()
         for i, k in enumerate(launches):
             seeds = [fold_in(cfg.seed, host_step + j) for j in range(k)]
             metrics = self._scan_fn(k)(self.state, pool, seeds)
+            if prof is not None:
+                self._stop_trace(prof, "train_pool")
+                prof = None
             host_step += k
             if pending is not None:
                 drain(*pending)
@@ -293,6 +314,35 @@ class Engine:
             drain(*pending)
         self._end_epoch(t0)
         return meters
+
+    # ---- --profile ----
+    def _start_trace(self):
+        """A started torch.profiler session (CPU activity, and CUDA activity
+        on a card) when --profile asks for one: in epoch 0, on rank 0 only;
+        else None."""
+        if not (self.cfg.profile and self.epoch == 0 and self.host0):
+            return None
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_trace(self, prof, name: str) -> str:
+        """Wait for the traced work, stop ``prof`` and write its Chrome
+        trace to save_dir/profile/<name>.pt.trace.json; returns the path."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        out = os.path.join(self.cfg.save_dir, "profile")
+        os.makedirs(out, exist_ok=True)
+        path = os.path.join(out, f"{name}.pt.trace.json")
+        prof.export_chrome_trace(path)
+        print(f"[i] --profile: trace of {name} written to {path}")
+        return path
 
     def _end_epoch(self, t0: float):
         cfg = self.cfg

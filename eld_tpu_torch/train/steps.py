@@ -223,20 +223,25 @@ def _gather_rows(pool: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def pick_batch(pool: Dict[str, torch.Tensor], batch: int, seed: int,
-               rows: Optional[slice] = None):
+               rows: Optional[slice] = None, augment: bool = True):
     """One step's batch from a device-resident pool: ``batch`` rows picked
     uniformly with replacement, the same rows from every entry (paired
-    pools stay aligned), converted to f32, then jointly augmented.  With
+    pools stay aligned), converted to f32, then jointly augmented (unless
+    ``augment`` is false; the picks are the same either way).  With
     ``rows`` only those rows of the picked batch (a data-parallel rank's)
     are gathered and augmented."""
     first = next(iter(pool.values()))
     dev = first.device
     gen = torch.Generator(device=dev).manual_seed(fold_in(seed, 2))
     idx = torch.randint(0, first.shape[0], (batch,), generator=gen, device=dev)
+    if rows is not None:
+        idx = idx[rows]
+    out = {k: to_f32(_gather_rows(v, idx)) for k, v in pool.items()}
+    if not augment:
+        return out
     masks = augment_masks(torch.Generator(device=dev).manual_seed(fold_in(seed, 3)), batch)
     if rows is not None:
-        idx, masks = idx[rows], tuple(m[rows] for m in masks)
-    out = {k: to_f32(_gather_rows(v, idx)) for k, v in pool.items()}
+        masks = tuple(m[rows] for m in masks)
     return dict(zip(out, augment_batch(list(out.values()), *masks)))
 
 
@@ -248,6 +253,7 @@ def make_train_scan(
     k_mode: str = "overridden",
     batch: int = 16,
     steps_per_call: int = 10,
+    augment: bool = True,
     autocast_dtype: Optional[torch.dtype] = None,
     forward: Optional[nn.Module] = None,
     shard: tuple = (0, 1),
@@ -258,8 +264,10 @@ def make_train_scan(
     {"clean": (P, H, W, C)} for synthetic training or {"input", "target"}
     of equal P for paired training, usually uint16 (``pool_to_device``);
     ``seeds`` holds one seed per step.  Step j picks and augments its batch
-    with ``pick_batch(pool, batch, seeds[j])`` and then is exactly
-    ``make_train_step``'s step on that batch with ``seeds[j]``.  Metrics
+    with ``pick_batch(pool, batch, seeds[j], augment=augment)`` and then is
+    exactly ``make_train_step``'s step on that batch with ``seeds[j]``.
+    ``augment=False`` keeps the picked patches as they are (the synthetic
+    demo's scan-vs-per-step A/B, whose per-step arm never augments).  Metrics
     are the mean and the last of the K losses, left on the device.
     ``batch`` is the global batch; under ``shard=(rank, world)`` each step
     keeps the rank's rows of it, and the K losses are averaged over the
@@ -276,7 +284,7 @@ def make_train_scan(
     def multi(state: TrainState, pool: Dict[str, torch.Tensor], seeds: Sequence[int]):
         if len(seeds) != steps_per_call:
             raise ValueError(f"{len(seeds)} seeds for {steps_per_call} steps per call")
-        losses = torch.stack([step(state, pick_batch(pool, batch, seed, rows), seed)
+        losses = torch.stack([step(state, pick_batch(pool, batch, seed, rows, augment), seed)
                               for seed in seeds])
         losses = global_mean(losses, shard[1])
         return {"Pixel": losses.mean(), "PixelLast": losses[-1]}

@@ -1,6 +1,6 @@
 """The port's noise kernel, pooled trainer, eval forward, ISP, serving
-artifacts, spatial forward, data-parallel picks and asynchronous saves on
-the card (marked ``cuda``; skipped where there is none).
+artifacts, spatial forward, data-parallel picks, asynchronous saves, the
+synthetic demo, apply_noise and the demosaic on the card (marked ``cuda``; skipped where there is none).
 
 This file imports neither JAX nor eld_tpu, so it runs on a machine that
 has the card and torch but not the JAX package's dependencies:
@@ -233,3 +233,50 @@ def test_async_save_on_the_card_writes_the_state_of_the_call(cuda_device, tmp_pa
                for i, st in want_opt.items() for k, t in st.items())
     assert got["iterations"] == 2
     assert not all(torch.equal(v, eng.model.state_dict()[k].cpu()) for k, v in want.items())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [[], ["--scan", "2"]], ids=["per_step", "scan"])
+def test_demo_synthetic_launches_the_kernel_once_per_step(cuda_device, extra):
+    from eld_tpu_torch.tools import demo_synthetic
+
+    before = synthesize_kernel.launches
+    rec = demo_synthetic.main(["--size", "64", "--n_train", "8", "--batch", "2", "--steps", "4"]
+                              + extra)
+    assert synthesize_kernel.launches - before == 4
+    assert onp.isfinite(rec["final_loss"]) and onp.isfinite(rec["mid_gain_db"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["PGrq", "eld"])
+def test_apply_noise_on_the_card_equals_the_cpu_on_the_same_draws(cuda_device, model):
+    """apply_noise on the card against noise_core on the CPU fed the very
+    draws the card's generator made: equal within 1e-5 on >= 99.9% of the
+    elements, and never more than one Poisson count apart (exp rounds
+    differently on the two devices)."""
+    from eld_tpu_torch.noise.model import apply_noise, sample_draws
+    from eld_tpu_torch.tools.demo_synthetic import calibrated_params
+
+    p = calibrated_params(load_camera_params(include=4, device=cuda_device), 200)
+    y = torch.rand((64, 48, 4), generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    got = apply_noise(torch.Generator(device=cuda_device).manual_seed(5), y, p, model)
+    one = type(p)(**{k: v.reshape(1, -1) for k, v in vars(p).items()})
+    draws = sample_draws(torch.Generator(device=cuda_device).manual_seed(5), y[None], one, model)
+    want = noise_core(y[None].cpu(), type(p)(**{k: v.cpu() for k, v in vars(one).items()}),
+                      model, {k: v.cpu() for k, v in draws.items()})[0]
+    diff = (got.cpu() - want).abs()
+    count = float(p.K * p.ratio / p.saturation_level)
+    assert float((diff <= 1e-5).float().mean()) >= 0.999
+    assert float(diff.max()) <= count + 1e-5
+
+
+@pytest.mark.cuda
+def test_demosaic_mhc_on_the_card_equals_the_cpu(cuda_device):
+    from eld_tpu_torch.core.demosaic import demosaic_mhc, render_preview
+
+    x = torch.rand((96, 128, 4), generator=torch.Generator().manual_seed(2))
+    assert float((demosaic_mhc(x.to(cuda_device)).cpu() - demosaic_mhc(x)).abs().max()) <= 1e-5
+    wb, ccm = [2.0, 1.0, 1.5, 1.0], torch.eye(3)
+    card = render_preview(x.to(cuda_device) * 0.3, wb, ccm, half_size=False)
+    assert float((card.cpu() - render_preview(x * 0.3, wb, ccm, half_size=False)).abs().max()) \
+        <= 1.0 / 255 + 1e-6

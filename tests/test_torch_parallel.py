@@ -46,7 +46,7 @@ from eld_tpu_torch.data.loader import Loader
 from eld_tpu_torch.models import build_arch
 from eld_tpu_torch.noise.model import synthesize
 from eld_tpu_torch.noise.params import load_camera_params, sample_params_batch, take_rows
-from eld_tpu_torch.parallel.mesh import MeshSpec, rank_rows
+from eld_tpu_torch.parallel.mesh import MeshSpec, rank_rows, spatial_devices
 from eld_tpu_torch.parallel.multihost import (
     all_hosts_agree,
     allgather_objects,
@@ -375,6 +375,23 @@ def test_refusals_in_one_process(tmp_path, monkeypatch):
         Engine(_cfg(tmp_path, "w"))
     with pytest.raises(RuntimeError, match="--multihost was not given"):
         maybe_initialize_multihost(Config(device="cpu"))
+
+
+def test_spatial_forward_starts_at_the_engines_card(tmp_path, monkeypatch):
+    """--mesh_spatial S takes the S cards from the Engine's own, cuda:k ..
+    cuda:k+S-1, and refuses by name a CPU --device and a range past the
+    visible cards (a 2-card host, patched in), before the model moves."""
+    for k in TORCHRUN_ENV:
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(ValueError, match="--device is cpu"):
+        Engine(_cfg(tmp_path, "cpu", mesh_spatial=2))
+    with pytest.raises(ValueError, match="from --device cuda:1 needs cuda:1..cuda:2.*cuda:2 is "
+                                         "missing"):
+        Engine(_cfg(tmp_path, "k1", mesh_spatial=2, device="cuda:1"))
+    assert spatial_devices("cuda:1", 2, 3) == [torch.device("cuda", 1), torch.device("cuda", 2)]
+    assert spatial_devices("cuda:0", 2, 2) == [torch.device("cuda", 0), torch.device("cuda", 1)]
 
 
 @pytest.mark.parametrize("world", [2, 4])

@@ -284,8 +284,6 @@ def test_train_syn_cli_runs_two_steps_on_cpu(tmp_path):
     assert all(onp.isfinite(h[1]["Pixel"]) for h in eng.history)
     assert train_syn.lr_for_epoch(99) == 1e-4 and train_syn.lr_for_epoch(100) == 5e-5
     assert train_syn.lr_for_epoch(180) == 1e-5
-    with pytest.raises(NotImplementedError, match="queue 1 #15"):
-        train_syn.main(argv + ["--profile"])
     with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         train_syn.main(argv + ["--mesh_data", "2"])
     with pytest.raises(ValueError, match="no cluster environment"):
@@ -294,11 +292,52 @@ def test_train_syn_cli_runs_two_steps_on_cpu(tmp_path):
         train_syn.main(argv + ["--noise", ""])
 
 
+@pytest.mark.parametrize("cli", ["train_syn_per_step", "train_syn_pooled", "train_real"])
+def test_profile_traces_and_leaves_the_parameters_unchanged(tmp_path, cli):
+    """--profile writes a torch.profiler trace under save_dir/profile (of
+    the first min(8, n) steps on the per-step path, of train_pool's first
+    call on the pooled one), and the traced run's parameters equal the
+    same run's without the flag."""
+    import json
+
+    from eld_tpu_torch.data.builder import store_name
+    from eld_tpu_torch.tools import train_real, train_syn
+
+    recs = onp.random.default_rng(6).integers(0, 65535, (4, 32, 32, 4), dtype=onp.uint16)
+    if cli == "train_real":
+        for kind in ("input", "target"):
+            _write(PatchStoreWriter, str(tmp_path / store_name(kind)), recs)
+        main, extra = train_real.main, []
+    else:
+        _write(PatchStoreWriter, str(tmp_path / "SID_Sony_Raw.eps"), recs)
+        main = train_syn.main
+        extra = ["--noise", "eld", "--include", "4", "--scan",
+                 "0" if cli == "train_syn_per_step" else "2"]
+    params, traces = {}, {}
+    for profile in (False, True):
+        argv = ["--traindir", str(tmp_path), "--evaldir", str(tmp_path / "none"),
+                "--checkpoints_dir", str(tmp_path / f"ck{profile}"), "--device", "cpu",
+                "--base_width", "4", "-b", "2", "--epochs", "1", "--no-log", "--no-verbose",
+                "--nThreads", "0"] + extra + (["--profile"] if profile else [])
+        eng = main(argv)
+        assert eng.iterations == 2
+        params[profile] = eng.model.state_dict()
+        out = os.path.join(eng.cfg.save_dir, "profile")
+        traces[profile] = sorted(os.listdir(out)) if os.path.isdir(out) else []
+    for k, v in params[False].items():
+        assert torch.equal(params[True][k], v), k
+    name = "train_pool" if cli == "train_syn_pooled" else "train"
+    assert traces == {False: [], True: [f"{name}.pt.trace.json"]}
+    with open(os.path.join(eng.cfg.save_dir, "profile", f"{name}.pt.trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    assert any("conv" in e.get("name", "") for e in events)
+
+
 def test_package_imports_without_jax_or_nvcc():
     """Every eld_tpu_torch module (the eval stack, the ISP, export and
-    serving, the builder, the parallel layer and the entry points included)
-    imports in a fresh
-    interpreter without pulling in JAX, and
+    serving, the builder, the parallel layer, the demo, the demosaic, the
+    video metrics, the host tools and the entry points included) imports in
+    a fresh interpreter without pulling in JAX, and
     importing builds no kernel and loads no native library."""
     code = (
         "import importlib, pkgutil, sys, eld_tpu_torch\n"
@@ -316,7 +355,9 @@ def test_package_imports_without_jax_or_nvcc():
         "          'core.isp', 'core.emor', 'export', 'noise.host', 'data.builder',\n"
         "          'tools.export_model', 'tools.denoise', 'tools.train_real',\n"
         "          'tools.build_dataset', 'tools.convert_raw', 'parallel.mesh',\n"
-        "          'parallel.multihost', 'parallel.spatial'):\n"
+        "          'parallel.multihost', 'parallel.spatial', 'tools.demo_synthetic',\n"
+        "          'core.demosaic', 'ops.steerable', 'ops.strred', 'utils.matio',\n"
+        "          'tools.vis_data', 'tools.bench_decode'):\n"
         "    assert 'eld_tpu_torch.' + n in names, n\n"
         "assert synthesize_kernel.launches == 0\n"
         "print(len(names))\n")
@@ -325,4 +366,4 @@ def test_package_imports_without_jax_or_nvcc():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
                          cwd=root)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 52
+    assert int(out.stdout.strip()) >= 59
