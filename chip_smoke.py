@@ -77,6 +77,21 @@ Phases, one line or block of output each; any failure exits non-zero:
      card against the CPU, with ms; (k) K1 at the demo's (16, 512, 512, 4)
      against noise_core on its own draws, its time alone, its plain
      version's and its bound;
+  9. the benchmark tools at full size: (a) bench_variants' default
+     sweep, its 25 combos in this process (the train step of unet/unet_s2d
+     x concat/split x convt/d2s, remat, f32 and bf16-stored skips at
+     512^2 batch 16; the full-frame eval forward chopped and whole at
+     batch 1-16), none failing, K1 once per step in every train combo and
+     its FLOPs the conv count; then two train combos again in a child
+     process each, as the sweep starts them, against the in-process rate,
+     with where the child's time went; (b) --modes peak through the
+     sweep's children, the unet_s2d step at batch 32/64/128 with K1 and
+     with the plain noise, K1 launched once per step on its arm and never
+     on the plain one; (k) K1 at (128, 512, 512, 4), the largest batch
+     (b) gives it, clip on, against noise_core on its own draws; (c)
+     roofline for unet and unet_s2d at batch 16: FLOPs equal the conv
+     count, K1's bytes by hand, fewer bytes than the plain noise path,
+     MFU in (0, 100];
 and prints the kernels' JSON line, the card line, and a last JSON line
 {"ok": true, "device": {...}}.  It imports nothing of JAX.
 """
@@ -1811,6 +1826,232 @@ def phase8(card, tmp):
     return out
 
 
+# ---- phase 9 ------------------------------------------------------------
+
+BENCH_SHAPE = (16, 512, 512, 4)  # bench_variants' and roofline's train batch
+BENCH_TRAIN_STEPS = 24  # a train combo: 1 counted + 3 warmup + 2 x 10 timed
+BENCH_PEAK_STEPS = 53  # a peak combo: 3 warmup + 5 x 10 timed
+PEAK_SHAPE = (128, 512, 512, 4)  # the largest batch --modes peak gives K1
+
+
+def conv_flops(arch, n, h, w, width, cin=4, cout=4):
+    """The train step's FLOPs by hand (the one copy: phase 9 and
+    tests/test_torch_bench.py check roofline.step_cost against it): 3x the
+    forward FLOPs of every conv and transposed conv (2 per multiply-add;
+    the input gradient and the weight gradient cost as much as the
+    forward), less the first conv's input gradient, which is never
+    computed.  ``unet_s2d`` is the U-Net on (h/2, w/2, 4c).  The split
+    decoder and the d2s upsampling do the same multiply-adds as concat and
+    convt."""
+    if arch == "unet_s2d":
+        h, w, cin, cout = h // 2, w // 2, cin * 4, cout * 4
+    widths = [width * 2 ** i for i in range(5)]
+    first = 2 * n * h * w * 9 * cin * widths[0]
+    fwd, prev = 0, cin
+    for lvl, c in enumerate(widths):  # encoder: two 3x3 convs per level
+        fwd += 2 * n * h * w * 9 * (prev * c + c * c)
+        prev = c
+        if lvl < 4:
+            h, w = h // 2, w // 2
+    for c in widths[3::-1]:  # decoder: 2x2/2 upsample, then 3x3 on [up, skip], then 3x3
+        fwd += 2 * n * h * w * 4 * (2 * c) * c
+        h, w = 2 * h, 2 * w
+        fwd += 2 * n * h * w * 9 * (2 * c * c + c * c)
+    fwd += 2 * n * h * w * widths[0] * cout  # the 1x1 output conv
+    return 3 * fwd - first
+
+
+# combos 9a also runs as child processes, against the same combo in-process
+BENCH_CHILDREN = (("train", "unet_s2d", "concat", "convt"), ("train", "unet", "concat", "convt"))
+
+
+def _secs(r):
+    return " ".join(f"{k} {v:.2f}" for k, v in r["secs"].items())
+
+
+def phase9a(card, tmp, children=BENCH_CHILDREN):
+    """bench_variants' default sweep at full size, its 25 combos (14 train,
+    11 full-frame eval) measured in this process by ``run_combo``; then
+    ``children`` again, each in its own child process as the sweep starts
+    it, against the in-process rate, with where the child's time went.  No
+    error; every train combo K1 once per step, 24 steps and, without
+    remat, the conv count's FLOPs; rates above 0."""
+    import torch
+
+    from eld_tpu_torch.tools import bench_variants
+
+    recs = []
+    for combo in bench_variants.combos():
+        recs.append(bench_variants.run_combo(combo, "cuda"))
+        torch.cuda.empty_cache()
+    train = [r for r in recs if r["mode"] == "train"]
+    check(len(train) == 14 and len(recs) == 25, f"9a: {len(recs)} records, {len(train)} train")
+    for r in train:
+        tag = f"9a train {r['arch']}/{r['skip_mode']}/{r['upsample']}"
+        check(r["k1_launches"] == r["steps"] == BENCH_TRAIN_STEPS,
+              f"{tag}: {r['k1_launches']} K1 launches for {r['steps']} steps")
+        check(r["patches_per_sec"] > 0, f"{tag}: {r['patches_per_sec']} patches/s")
+        if not r["remat"]:
+            want = conv_flops(r["arch"], *BENCH_SHAPE[:3], 32)
+            check(r["flops_per_step"] == want, f"{tag}: {r['flops_per_step']} FLOPs, want {want}")
+    for r in recs:
+        if r["mode"] == "eval_fullframe":
+            check(r["fullframe_fps"] > 0, f"9a eval: {r}")
+    print(f"[9a] bench_variants' 25 default combos in one process on {card}, no error:",
+          flush=True)
+    for r in train:
+        flags = "+".join(k for k in ("remat", "f32", "skip_bf16") if r[k]) or "bf16"
+        print(f"[9a]   train {r['arch']:8s} {r['skip_mode']:6s} {r['upsample']:5s} {flags:13s} "
+              f"{r['patches_per_sec']:9.2f} patches/s  {r['flops_per_step'] / 1e12:.4f} TF  "
+              f"{r['bytes_per_step'] / 1e9:.2f} GB  K1 {r['k1_launches']}/{r['steps']}  "
+              f"s: {_secs(r)}", flush=True)
+    for r in recs:
+        if r["mode"] == "eval_fullframe":
+            print(f"[9a]   eval  {r['arch']:8s} {r['skip_mode']:6s} {r['upsample']:5s} "
+                  f"{'chop' if r['chop'] else 'nochop':6s} b{r['batch']:<3d} "
+                  f"{r['fullframe_fps']:9.2f} frames/s (MAD {r['fps_mad']})  s: {_secs(r)}",
+                  flush=True)
+    same = {tuple(c): r for c, r in zip(bench_variants.combos(), recs)}
+    kids = []
+    for combo in children:
+        try:
+            kid = bench_variants.run_child(combo, "cuda")
+        except subprocess.SubprocessError as e:
+            fail(f"9a {'/'.join(combo)}: the child failed: {e}")
+        kids.append(kid)
+        rate = "patches_per_sec" if kid["mode"] == "train" else "fullframe_fps"
+        if kid["mode"] == "train":
+            check(kid["k1_launches"] == kid["steps"] == BENCH_TRAIN_STEPS,
+                  f"9a child {'/'.join(combo)}: K1 {kid['k1_launches']} for {kid['steps']} steps")
+        print(f"[9a] child {'/'.join(combo)}: {kid[rate]} against {same[tuple(combo)][rate]} "
+              f"in-process ({kid[rate] / same[tuple(combo)][rate]:.3f}x); the child's "
+              f"{kid['secs']['wall']:.2f} s: {_secs(kid)}", flush=True)
+    ran = train + [k for k in kids if k["mode"] == "train"]
+    return {"launches": sum(r["k1_launches"] for r in ran),
+            "steps": sum(r["steps"] for r in ran), "results": recs, "children": kids}
+
+
+def phase9k(card):
+    """K1 at the largest batch the peak path gives it, (128, 512, 512, 4)
+    'eld' with clip on, on the path's own clean patches and parameters
+    drawn as its step draws them: against noise_core on the kernel's own
+    draws, clipped."""
+    import numpy as np
+    import torch
+
+    from eld_tpu_torch.noise.kernels import kernel_draws, synthesize_kernel
+    from eld_tpu_torch.noise.model import noise_core
+    from eld_tpu_torch.noise.params import load_camera_params, sample_params_batch
+
+    torch.cuda.empty_cache()
+    clean = torch.from_numpy(np.random.default_rng(0).random(PEAK_SHAPE, dtype=np.float32))
+    clean = clean.cuda()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 128)
+    params = sample_params_batch(gen, load_camera_params(device="cuda"), PEAK_SHAPE[0])
+    out = synthesize_kernel(19, clean, params, "eld", clip=True)
+    ref = noise_core(clean, params, "eld", kernel_draws(19, PEAK_SHAPE, "eld", "cuda"))
+    err = float((out - ref.clamp(0.0, 1.0)).abs().max())
+    check(torch.isfinite(out).all() and out.shape == clean.shape, f"9k K1 at {PEAK_SHAPE}")
+    check(err <= 1e-5, f"9k K1 vs noise_core at {PEAK_SHAPE} clip on: max |err| {err}")
+    print(f"[9k] K1 eld {PEAK_SHAPE} clip on, on the peak path's patches: == noise_core on "
+          f"its own draws, clipped, within {err:.3g} (tol 1e-5) on {card}", flush=True)
+    del out, ref, clean
+    torch.cuda.empty_cache()
+    return err
+
+
+def phase9b(card, tmp):
+    """bench_variants --modes peak: the unet_s2d step at batch 32/64/128,
+    plain noise against K1; the kernel arm launches K1 once per step, the
+    plain arm never."""
+    from eld_tpu_torch.tools import bench_variants
+
+    res = bench_variants.main(["--modes", "peak", "--out", os.path.join(tmp, "peak.jsonl"),
+                               "--device", "cuda"])
+    recs = res["results"]
+    check(len(recs) == 6 and not [r for r in recs if "error" in r], f"9b: {recs}")
+    with open(os.path.join(tmp, "peak.jsonl")) as f:
+        check(len(f.readlines()) == 6, "9b: --out holds a line per combo")
+    by = {(r["noise_impl"], r["batch"]): r for r in recs}
+    for (impl, b), r in by.items():
+        want = r["steps"] if impl == "kernel" else 0
+        check(r["steps"] == BENCH_PEAK_STEPS and r["k1_launches"] == want,
+              f"9b {impl} batch {b}: {r['k1_launches']} K1 launches in {r['steps']} steps")
+        check(r["patches_per_sec"] > 0, f"9b {impl} batch {b}: {r}")
+    for b in (32, 64, 128):
+        k, p = by[("kernel", b)], by[("plain", b)]
+        print(f"[9b] peak unet_s2d batch {b}: kernel {k['patches_per_sec']} patches/s (MAD "
+              f"{k['mad']}), plain {p['patches_per_sec']} (MAD {p['mad']}), "
+              f"{k['patches_per_sec'] / p['patches_per_sec']:.3f}x on {card}; the children's "
+              f"s: kernel {_secs(k)}; plain {_secs(p)}", flush=True)
+    kernel = [r for r in recs if r["noise_impl"] == "kernel"]
+    return {"launches": sum(r["k1_launches"] for r in kernel),
+            "steps": sum(r["steps"] for r in kernel), "results": recs}
+
+
+def phase9c(card):
+    """roofline for unet and unet_s2d at batch 16, bf16, K1's path, with the
+    run: FLOPs equal the conv count, 0 < MFU <= 100, K1's hand-added bytes
+    are its batch and parameter rows, and the plain noise path counts more
+    bytes than the kernel's."""
+    from eld_tpu_torch.noise.kernels import synthesize_kernel
+    from eld_tpu_torch.tools import roofline
+
+    n, h, w, c = BENCH_SHAPE
+    k1 = 2 * n * h * w * c * 4 + n * 12 * 4
+    out, launches, steps = {}, 0, 0
+    for arch in ("unet", "unet_s2d"):
+        argv = ["--arch", arch, "--batch", str(n), "--patch", str(h), "--device", "cuda"]
+        synthesize_kernel.launches = 0
+        rec = roofline.main(argv + ["--noise_impl", "kernel"])
+        launches += synthesize_kernel.launches
+        steps += rec["steps"]
+        check(synthesize_kernel.launches == rec["steps"] == 14,
+              f"9c {arch}: {synthesize_kernel.launches} K1 launches for {rec['steps']} steps")
+        plain = roofline.main(argv + ["--noise_impl", "plain", "--no-run"])
+        want = conv_flops(arch, n, h, w, 32)
+        check(rec["flops_per_step"] == want == plain["flops_per_step"],
+              f"9c {arch}: {rec['flops_per_step']} / {plain['flops_per_step']} FLOPs, want {want}")
+        check(0 < rec["mfu_pct"] <= 100, f"9c {arch}: MFU {rec['mfu_pct']}%")
+        check(rec["noise_impl"] == "kernel" and rec["k1_bytes_per_step"] == k1,
+              f"9c {arch}: K1 bytes {rec['k1_bytes_per_step']}, want {k1}")
+        check(rec["bytes_per_step"] < plain["bytes_per_step"],
+              f"9c {arch}: {rec['bytes_per_step']} bytes with K1, {plain['bytes_per_step']} plain")
+        print(f"[9c] roofline {arch} b{n} {h}^2 bf16: {rec['flops_per_step'] / 1e12:.4f} TF "
+              f"(== the conv count), {rec['bytes_per_step'] / 1e9:.3f} GB with K1 (its "
+              f"{k1 / 1e6:.3f} MB by hand) vs {plain['bytes_per_step'] / 1e9:.3f} GB plain, "
+              f"intensity {rec['arith_intensity_flop_per_byte']} FLOP/B (ridge "
+              f"{rec['ridge_flop_per_byte']}) -> {rec['bound']}; {rec['step_ms']} ms/step, "
+              f"{rec['achieved_tflops']} TFLOP/s = MFU {rec['mfu_pct']}% of 989.4, "
+              f"{rec['achieved_gbs']} GB/s on {rec['platform']} ({rec['power_limit_w']} W)",
+              flush=True)
+        out[arch] = {"kernel": rec, "plain": plain}
+    return {"launches": launches, "steps": steps, "results": out}
+
+
+def phase9(card, tmp):
+    """bench_variants' default sweep in-process and two of its combos as children
+    (9a), its peak A/B through the sweep's children (9b), K1 at the peak path's
+    largest batch against its plain version (9k), then roofline (9c)."""
+    secs = [time.perf_counter()]
+    out = {"9a": phase9a(card, tmp)}
+    secs.append(time.perf_counter())
+    out["9b"] = phase9b(card, tmp)
+    secs.append(time.perf_counter())
+    err = phase9k(card)
+    secs.append(time.perf_counter())
+    out["9c"] = phase9c(card)
+    secs.append(time.perf_counter())
+    print(f"[9] phase 9: {secs[-1] - secs[0]:.1f} s (" + ", ".join(
+        f"{k} {b - a:.1f} s" for k, a, b in zip(("9a", "9b", "9k", "9c"), secs, secs[1:]))
+        + ")", flush=True)
+    print("[9] " + json.dumps({**{k: v["results"] for k, v in out.items()},
+                               "9a_children": out["9a"]["children"], "9k_max_abs_err": err}),
+          flush=True)
+    return {"launches": sum(out[k]["launches"] for k in out),
+            "steps": sum(out[k]["steps"] for k in out)}
+
+
 def main():
     check(len(sys.argv) == 1, f"unknown arguments {sys.argv[1:]}")
     card = phase0()
@@ -1842,16 +2083,18 @@ def main():
                        for k, v in arts.items()}}), flush=True)
         p7 = phase7(card, tmp, engines, p5["ckpt"])
         p8 = phase8(card, tmp)
+        p9 = phase9(card, tmp)
 
     import torch
 
     from eld_tpu_torch.noise.kernels import REPLACES, SOURCE_PATH
 
     launches = (s["launches"] + pooled_launches + srgb_launches + p7["7a"]["launches"]
-                + p7["7b"]["launches"] + p8["launches"])
-    # a data-parallel rank's step counts as a step: one launch each
+                + p7["7b"]["launches"] + p8["launches"] + p9["launches"])
+    # a data-parallel rank's step counts as a step: one launch each; phase
+    # 9's plain-noise arms are not on K1's path and count no steps
     steps = (s["steps"] + pooled_steps + srgb_steps + p7["7a"]["steps"]
-             + p7["7b"]["rank_steps"] + p8["steps"])
+             + p7["7b"]["rank_steps"] + p8["steps"] + p9["steps"])
     kernels = {"kernels": [{
         "name": "noise_synth", "route": "cuda", "source": SOURCE_PATH, "replaces": REPLACES,
         "launches": launches, "max_abs_err": k["max_abs_err"], "ms": k["ms"],

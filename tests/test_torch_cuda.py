@@ -1,6 +1,7 @@
 """The port's noise kernel, pooled trainer, eval forward, ISP, serving
 artifacts, spatial forward, data-parallel picks, asynchronous saves, the
-synthetic demo, apply_noise and the demosaic on the card (marked ``cuda``; skipped where there is none).
+synthetic demo, apply_noise, the demosaic and the benchmark tools on the
+card (marked ``cuda``; skipped where there is none).
 
 This file imports neither JAX nor eld_tpu, so it runs on a machine that
 has the card and torch but not the JAX package's dependencies:
@@ -280,3 +281,32 @@ def test_demosaic_mhc_on_the_card_equals_the_cpu(cuda_device):
     card = render_preview(x.to(cuda_device) * 0.3, wb, ccm, half_size=False)
     assert float((card.cpu() - render_preview(x * 0.3, wb, ccm, half_size=False)).abs().max()) \
         <= 1.0 / 255 + 1e-6
+
+
+@pytest.mark.cuda
+def test_bench_variants_train_child_launches_the_kernel_once_per_step(cuda_device, monkeypatch,
+                                                                      capsys):
+    """A train child at eld_tpu's smoke size on the card: K1 once per step
+    (1 counted, 3 warmup, 2 x 10 timed)."""
+    from eld_tpu_torch.tools import bench_variants
+
+    for name, value in {"_SMOKE": True, "PATCH": 64, "BATCH": 2}.items():
+        monkeypatch.setattr(bench_variants, name, value)
+    rec = bench_variants._child(["train", "unet_s2d", "split", "convt"], "cuda")
+    assert rec["k1_launches"] == rec["steps"] == 24
+    assert rec["patches_per_sec"] > 0
+
+
+@pytest.mark.cuda
+def test_roofline_on_the_card_counts_the_cpus_flops(cuda_device):
+    """The card's step counts the FLOPs the CPU's does, K1's bytes are
+    added by hand, and the MFU lies in (0, 100]."""
+    from eld_tpu_torch.tools import roofline
+
+    argv = ["--arch", "unet", "--batch", "2", "--patch", "64"]
+    card = roofline.main(argv + ["--steps", "3", "--device", "cuda"])
+    cpu = roofline.main(argv + ["--no-run", "--device", "cpu"])
+    assert card["flops_per_step"] == cpu["flops_per_step"]
+    assert 0 < card["mfu_pct"] <= 100
+    assert card["noise_impl"] == "kernel" and cpu["noise_impl"] == "plain"
+    assert card["k1_bytes_per_step"] == 2 * 2 * 64 * 64 * 4 * 4 + 2 * 12 * 4

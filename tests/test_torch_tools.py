@@ -1,17 +1,24 @@
 """The port's host tools against eld_tpu's: ``utils/matio.loadmat`` gives
 equal dicts, ``tools/vis_data`` writes byte-equal PNGs, and
-``tools/bench_decode`` emits the same record keys."""
+``tools/bench_decode`` emits the same record keys.  Every port tool has a
+``cli()`` and a console script, and every eld_tpu module has a
+counterpart in the port or is one that ROADMAP #16 drops."""
 
+import importlib
 import os
+import pkgutil
 
 import numpy as onp
 import pytest
 import scipy.io as spio
 
+import eld_tpu
+import eld_tpu_torch
 from eld_tpu.data.patchstore import PatchStoreWriter
 from eld_tpu.tools import bench_decode as jax_bench_decode
 from eld_tpu.tools import vis_data as jax_vis_data
 from eld_tpu.utils.matio import loadmat as jax_loadmat
+from eld_tpu_torch import tools as port_tools
 from eld_tpu_torch.tools import bench_decode, vis_data
 from eld_tpu_torch.utils.matio import loadmat
 
@@ -79,3 +86,31 @@ def test_bench_decode_emits_the_same_record_keys(tmp_path):
                                                             "mt_frames_per_s"))
     with open(tmp_path / "rec.jsonl") as f:
         assert len(f.readlines()) == 2
+
+
+PORT_TOOLS = sorted(m.name for m in pkgutil.iter_modules(port_tools.__path__))
+
+
+@pytest.mark.parametrize("tool", PORT_TOOLS)
+def test_every_port_tool_has_a_cli_and_a_console_script(tool):
+    """The port's counterpart of test_denoise.py's check: each tool exposes
+    cli() returning 0 (main() returns data, which sys.exit would turn into
+    status 1), and pyproject names it eld-torch-<tool> -> <module>:cli."""
+    mod = importlib.import_module(f"eld_tpu_torch.tools.{tool}")
+    assert callable(getattr(mod, "cli")), tool
+    pyproject = os.path.join(os.path.dirname(__file__), "..", "pyproject.toml")
+    with open(pyproject) as f:
+        scripts = f.read().split("[project.scripts]")[1].split("\n[")[0]
+    line = f'eld-torch-{tool.replace("_", "-")} = "eld_tpu_torch.tools.{tool}:cli"'
+    assert line in scripts.splitlines()
+
+
+def test_every_eld_tpu_module_is_ported_or_dropped():
+    """Module by module, by public name: what eld_tpu has and the port does
+    not is exactly the TPU-only code ROADMAP #16 drops."""
+    def names(pkg):
+        return {m.name[len(pkg.__name__) + 1:]
+                for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")}
+
+    assert names(eld_tpu) - names(eld_tpu_torch) == {
+        "tools.aot", "tools.validate_pallas", "compat.torch_import"}

@@ -336,7 +336,8 @@ def test_profile_traces_and_leaves_the_parameters_unchanged(tmp_path, cli):
 def test_package_imports_without_jax_or_nvcc():
     """Every eld_tpu_torch module (the eval stack, the ISP, export and
     serving, the builder, the parallel layer, the demo, the demosaic, the
-    video metrics, the host tools and the entry points included) imports in
+    video metrics, the host tools, the benchmark tools and the entry points
+    included) imports in
     a fresh interpreter without pulling in JAX, and
     importing builds no kernel and loads no native library."""
     code = (
@@ -357,7 +358,8 @@ def test_package_imports_without_jax_or_nvcc():
         "          'tools.build_dataset', 'tools.convert_raw', 'parallel.mesh',\n"
         "          'parallel.multihost', 'parallel.spatial', 'tools.demo_synthetic',\n"
         "          'core.demosaic', 'ops.steerable', 'ops.strred', 'utils.matio',\n"
-        "          'tools.vis_data', 'tools.bench_decode'):\n"
+        "          'tools.vis_data', 'tools.bench_decode', 'tools.roofline',\n"
+        "          'tools.bench_variants'):\n"
         "    assert 'eld_tpu_torch.' + n in names, n\n"
         "assert synthesize_kernel.launches == 0\n"
         "print(len(names))\n")
@@ -366,4 +368,4 @@ def test_package_imports_without_jax_or_nvcc():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
                          cwd=root)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 59
+    assert int(out.stdout.strip()) >= 61
