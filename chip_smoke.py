@@ -92,6 +92,19 @@ Phases, one line or block of output each; any failure exits non-zero:
      roofline for unet and unet_s2d at batch 16: FLOPs equal the conv
      count, K1's bytes by hand, fewer bytes than the plain noise path,
      MFU in (0, 100];
+ 10. the pooled call as one device program: (a) K1's device-seed entry
+     against its host-seed entry at (8, 512, 512, 4) and (128, 512, 512,
+     4), 'eld' clip on, bit for bit and against noise_core on its own
+     draws; a CUDA graph of one device-seed launch replayed with new
+     seeds; both entries' time alone; (b) the pooled trainer as a CUDA
+     graph (the Engine's own) against the eager loop, unet and unet_s2d
+     at batch 8, calls of K = 10, 10, 10 (at rate 0), 3 (back at 1e-4), 3
+     from the same weights and pool: every call's K losses and the
+     parameters bit for bit under cudnn.deterministic, the rate changes
+     (no parameter moves at rate 0), state.step and K1 launches; (c)
+     patches/s graph vs eager in turns, unet and unet_s2d at batch 8 and
+     16 (host clock and CUDA events), and the device's idle share in one
+     profiled call of each;
 and prints the kernels' JSON line, the card line, and a last JSON line
 {"ok": true, "device": {...}}.  It imports nothing of JAX.
 """
@@ -163,7 +176,9 @@ def cuda_ms(fn, reps: int = 20, spin: bool = False) -> float:
 
 def kernel_only(lib, seed, clean, params, model, clip):
     """A call of ``lib``'s kernel alone on ``clean``: the parameter rows are
-    packed and the output allocated once, outside the call."""
+    packed and the output allocated once, outside the call.  ``seed`` an
+    int takes the host-seed entry, a one-element int64 tensor on the card
+    the device-seed entry."""
     import torch
 
     from eld_tpu_torch.noise import kernels
@@ -173,10 +188,14 @@ def kernel_only(lib, seed, clean, params, model, clip):
     out = torch.empty_like(clean)
     stream = torch.cuda.current_stream().cuda_stream
     args = (clean.data_ptr(), out.data_ptr(), packed.data_ptr(), n, h, w, c,
-            kernels.model_flags(model), int(clip), seed, stream)
+            kernels.model_flags(model), int(clip))
+    if isinstance(seed, torch.Tensor):
+        entry, args = lib.eld_noise_synth_dev, args + (seed.data_ptr(), stream)
+    else:
+        entry, args = lib.eld_noise_synth, args + (seed, stream)
 
     def call():
-        rc = lib.eld_noise_synth(*args)
+        rc = entry(*args)
         check(rc == 0, f"launch failed ({rc})")
         return out
 
@@ -469,12 +488,14 @@ def _build_verbose(src, out_dir):
 
 
 def _kernel_name(mangled: str) -> str:
+    """noise_synth_kernel<kPixel4, kDevSeed> as <float4|scalar, host|device seed>."""
     import re
 
-    m = re.search(r"noise_synth_kernel(ILb([01])E)?", mangled)
+    m = re.search(r"noise_synth_kernelILb([01])ELb([01])E", mangled)
     if not m:
         return mangled
-    return "noise_synth_kernel" + {"1": "<true>", "0": "<false>"}.get(m.group(2) or "", "")
+    return (f"noise_synth_kernel<{'float4' if m.group(1) == '1' else 'scalar'}, "
+            f"{'device' if m.group(2) == '1' else 'host'} seed>")
 
 
 # ---- phase 3 ------------------------------------------------------------
@@ -709,14 +730,14 @@ def phase4(card, tmp, step_ms):
         scan = make_train_scan(engine.model, noise_model="eld", bank=engine.bank, batch=8,
                                steps_per_call=10, autocast_dtype=torch.bfloat16)
         rates, per_step = [], []
-        for call in range(4):
+        for call in range(5):
             seeds = [fold_in(SEED, 10_000 + 10 * call + j) for j in range(10)]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             scan(engine.state, pool, seeds)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
-            if call:  # the first call is a warm-up
+            if call >= 2:  # warm-up: the eager first call, then the graph's capture
                 rates.append(80 / dt)
                 per_step.append(dt / 10 * 1e3)
         print(f"[4] {arch}: pooled calls of 10 steps (bf16, batch 8, 512^2): "
@@ -1290,20 +1311,21 @@ def _params_close(ref, got, steps):
 
 
 def _pooled_step_ms(engine, pool, calls=3):
-    """Per-step ms of ``calls`` timed pooled calls of 10 steps (one warm-up
-    call first), host clock around calls that end in a synchronize."""
+    """Per-step ms of ``calls`` timed pooled calls of 10 steps (two warm-up
+    calls first: a new pool's eager call and the CUDA graph's capture),
+    host clock around calls that end in a synchronize."""
     import torch
 
     from eld_tpu_torch.train.steps import fold_in
 
     out = []
-    for call in range(calls + 1):
+    for call in range(calls + 2):
         seeds = [fold_in(SEED, 20_000 + 10 * call + j) for j in range(10)]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         engine._scan_fn(10)(engine.state, pool, seeds)
         torch.cuda.synchronize()
-        if call:
+        if call >= 2:
             out.append((time.perf_counter() - t0) / 10 * 1e3)
     return out
 
@@ -2052,9 +2074,309 @@ def phase9(card, tmp):
             "steps": sum(out[k]["steps"] for k in out)}
 
 
+# ---- phase 10 -----------------------------------------------------------
+
+GRAPH_K = 10  # steps per pooled call, train_syn's --scan auto
+# 10b's calls: (K, the rate set just before the call, None: unchanged); the
+# graph arm runs K = 10 eagerly, captures and replays it, replays it at rate
+# 0 (a replay that kept the captured rate would move the parameters), then
+# K = 3 eagerly back at 1e-4 and as a capture and replay
+GRAPH_CALLS = ((10, None), (10, None), (10, 0.0), (3, ADAM_LR), (3, None))
+GRAPH_TIMED_CALLS = 3  # per turn, two turns per arm: 6 timed calls an arm
+
+
+def phase10a(card):
+    """K1's device-seed entry against its host-seed entry, 'eld' clip on, at
+    the slice's and the peak path's batch: bit-identical, and equal to
+    noise_core on the kernel's own draws; a CUDA graph of one device-seed
+    launch replays with each new seed written to its buffer; the kernel
+    alone with either entry (CUDA events, in turns)."""
+    import torch
+
+    from eld_tpu_torch.noise import kernels
+    from eld_tpu_torch.noise.kernels import kernel_draws, seed_tensor, synthesize_kernel
+    from eld_tpu_torch.noise.model import noise_core
+    from eld_tpu_torch.noise.params import load_camera_params, sample_params_batch
+
+    dev = torch.device("cuda")
+    bank = load_camera_params(device=dev)
+    seeds = (9, 0xF00D_0000_1234_5678)  # the second above 2^63: a negative int64
+    max_err, ref_err = 0.0, 0.0
+    for shape in (SLICE_SHAPE, PEAK_SHAPE):
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device=dev).manual_seed(SEED + shape[0])
+        clean = torch.rand(shape, generator=gen, device=dev)
+        params = sample_params_batch(gen, bank, shape[0])
+        for seed in seeds:
+            host = synthesize_kernel(seed, clean, params, "eld", clip=True)
+            devs = synthesize_kernel(seed_tensor(seed, dev), clean, params, "eld", clip=True)
+            err = float((host - devs).abs().max())
+            check(torch.equal(host, devs), f"10a device seed vs host seed at {shape}, seed "
+                                           f"{seed:#x}: max |err| {err}")
+            del host
+            ref = noise_core(clean, params, "eld", kernel_draws(seed, shape, "eld", dev))
+            e = float((devs - ref.clamp(0.0, 1.0)).abs().max())
+            check(e <= 1e-5, f"10a device seed vs noise_core at {shape}: max |err| {e}")
+            max_err, ref_err = max(max_err, err), max(ref_err, e)
+            del devs, ref
+        print(f"[10a] {shape} eld clip on, seeds {', '.join(hex(x) for x in seeds)}: device-"
+              f"seed entry == host-seed entry bit for bit (max |err| {max_err}), == noise_core "
+              f"on its own draws within {ref_err:.3g} (tol 1e-5)", flush=True)
+        if shape == PEAK_SHAPE:
+            del clean, params
+            continue
+        # a captured launch reads the seed when it runs: each replay draws the
+        # seed its buffer then holds
+        buf = seed_tensor(0, dev)
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            synthesize_kernel(buf, clean, params, "eld")  # warm-up (the library is loaded)
+        torch.cuda.current_stream().wait_stream(side)
+        with torch.cuda.graph(graph):
+            static = synthesize_kernel(buf, clean, params, "eld")
+        for seed in seeds:
+            buf.copy_(seed_tensor(seed, dev))
+            graph.replay()
+            check(torch.equal(static, synthesize_kernel(seed, clean, params, "eld")),
+                  f"10a a replayed device-seed launch did not draw seed {seed:#x}")
+        del graph, static
+        print(f"[10a] a CUDA graph of one device-seed launch, replayed after writing each "
+              f"seed to its buffer, equals the host-seed launch of that seed", flush=True)
+        lib = kernels.load_library()
+        times = {"host": [], "device": []}
+        for entry in ("host", "device", "device", "host"):
+            seed = 9 if entry == "host" else seed_tensor(9, dev)
+            times[entry].append(cuda_ms(kernel_only(lib, seed, clean, params, "eld", True),
+                                        spin=True))
+        print(f"[10a] kernel alone {shape} eld clip on (median of 20, CUDA events, turns "
+              f"host/device/device/host): host-seed entry "
+              f"{', '.join(f'{t:.4f}' for t in times['host'])} ms, device-seed entry "
+              f"{', '.join(f'{t:.4f}' for t in times['device'])} ms on {card}", flush=True)
+        del clean, params
+    torch.cuda.empty_cache()
+    return {"max_abs_err": max_err, "noise_core_err": ref_err,
+            "kernel_ms_host_seed": times["host"], "kernel_ms_dev_seed": times["device"]}
+
+
+def _graph_engine(tmp, arch, batch, name):
+    """A full-width training Engine on the card at the README quick-start's
+    settings (bf16, eld noise, SonyA7S2), its weights from SEED."""
+    from eld_tpu_torch.config import Config
+    from eld_tpu_torch.train.engine import Engine
+
+    return Engine(Config(device="cuda", netG=arch, noise="eld", include=4, batch_size=batch,
+                         bf16=True, is_train=True, no_log=True, no_verbose=True, seed=SEED,
+                         checkpoints_dir=os.path.join(tmp, "ck10"), name=name))
+
+
+def _mean_move(before, model):
+    return sum(float((model.state_dict()[k].float().cpu() - v).abs().sum())
+               for k, v in before.items()) / sum(v.numel() for v in before.values())
+
+
+def phase10b(card, tmp, pool):
+    """The pooled call as one CUDA graph against the eager loop: two engines
+    from the same weights run GRAPH_CALLS over the same pool, one through
+    its own pooled trainer (captured from its second call) and one through
+    make_train_scan(capture=False); every call's K losses, the parameters
+    after each call, the rate change, state.step and K1's launches must be
+    equal, bit for bit, with cuDNN held to deterministic algorithms."""
+    import torch
+
+    from eld_tpu_torch.noise.kernels import synthesize_kernel
+    from eld_tpu_torch.train.state import get_learning_rate
+    from eld_tpu_torch.train.steps import fold_in, make_train_scan
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    launches_total = steps_total = 0
+    try:
+        for arch in ("unet", "unet_s2d"):
+            runs = {}
+            for arm in ("eager", "graph"):
+                eng = _graph_engine(tmp, arch, 8, f"g10b_{arch}_{arm}")
+                eager = {k: make_train_scan(eng.model, noise_model="eld", bank=eng.bank,
+                                            batch=8, steps_per_call=k,
+                                            autocast_dtype=torch.bfloat16, capture=False)
+                         for k in (10, 3)}
+                losses, moves, rates = [], [], []
+                synthesize_kernel.launches = 0
+                step0 = eng.iterations
+                for k, lr in GRAPH_CALLS:
+                    if lr is not None:
+                        eng.set_learning_rate(lr)
+                    fn = eng._scan_fn(k) if arm == "graph" else eager[k]
+                    before = _cpu_state(eng.model)
+                    seeds = [fold_in(SEED, 50_000 + eng.iterations + j) for j in range(k)]
+                    fn(eng.state, pool, seeds)
+                    losses.append(fn.losses.float().cpu())
+                    moves.append(_mean_move(before, eng.model))
+                    rates.append(get_learning_rate(eng.state))
+                torch.cuda.synchronize()
+                n = synthesize_kernel.launches
+                replays = (sum(c.replays for k in (10, 3) for c in eng._scan_fn(k).captured
+                               .values()) if arm == "graph" else 0)
+                runs[arm] = {"losses": losses, "params": _cpu_state(eng.model), "moves": moves,
+                             "rates": rates, "steps": eng.iterations - step0, "launches": n,
+                             "replays": replays}
+                launches_total += n
+                steps_total += eng.iterations - step0
+                del eng, eager
+                torch.cuda.empty_cache()
+            e, g = runs["eager"], runs["graph"]
+            want = sum(k for k, _ in GRAPH_CALLS)
+            check(e["steps"] == g["steps"] == want and e["launches"] == g["launches"] == want,
+                  f"10b {arch}: steps {e['steps']} / {g['steps']}, K1 launches "
+                  f"{e['launches']} / {g['launches']} (want {want})")
+            check(g["replays"] == 3, f"10b {arch}: the graph arm replayed {g['replays']} "
+                                     f"calls, want 3 (calls 2 and 3 of K = 10, 2 of K = 3)")
+            for i, (a, b) in enumerate(zip(e["losses"], g["losses"])):
+                check(torch.equal(a, b), f"10b {arch} call {i}: losses eager {a.tolist()} vs "
+                                         f"graph {b.tolist()}")
+            diff = max(float((g["params"][k] - v).abs().max()) for k, v in e["params"].items())
+            check(diff == 0, f"10b {arch}: parameters differ by {diff}")
+            # the rate changes: at rate 0 the replayed call leaves every
+            # parameter where it was, and back at 1e-4 the next call moves them
+            for arm, r in runs.items():
+                check(r["rates"][2] == 0.0 and r["moves"][2] == 0.0
+                      and min(r["moves"][1], r["moves"][3]) > 0,
+                      f"10b {arch} {arm}: rates {r['rates']}, mean |move| per call "
+                      f"{r['moves']} (want 0 at rate 0, > 0 around it)")
+            print(f"[10b] {arch} batch 8: {len(GRAPH_CALLS)} calls of K "
+                  f"{[k for k, _ in GRAPH_CALLS]} at rates {g['rates']}, CUDA graph "
+                  f"({g['replays']} replays) vs eager loop, cudnn.deterministic: every call's "
+                  f"K losses and the parameters equal bit for bit; {g['steps']} steps and "
+                  f"{g['launches']} K1 launches in both; mean |move| per call "
+                  f"{', '.join(f'{m:.3g}' for m in g['moves'])} (0 at rate 0: the replay "
+                  f"read the new rate); first call's losses "
+                  f"{', '.join(f'{v:.5f}' for v in g['losses'][0].tolist()[:3])}, ...",
+                  flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return {"launches": launches_total, "steps": steps_total}
+
+
+def phase10c(card, tmp, pool):
+    """Patches/s of the pooled call as a CUDA graph and as the eager loop,
+    in turns (eager, graph, graph, eager), unet and unet_s2d at batch 8
+    and 16: host clock around calls of 10 steps that end in a synchronize,
+    and CUDA events around the same calls, after warm-up; then one call of
+    each arm under torch.profiler, the device's busy ms and idle share in
+    the traced window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from eld_tpu_torch.noise.kernels import synthesize_kernel
+    from eld_tpu_torch.train.steps import fold_in, make_train_scan
+
+    results, launches_total, steps_total = {}, 0, 0
+    for arch in ("unet", "unet_s2d"):
+        for batch in (8, 16):
+            eng = _graph_engine(tmp, arch, batch, f"g10c_{arch}_{batch}")
+            fns = {arm: make_train_scan(eng.model, noise_model="eld", bank=eng.bank,
+                                        batch=batch, steps_per_call=GRAPH_K,
+                                        autocast_dtype=torch.bfloat16,
+                                        capture=arm == "graph")  # False: the eager loop
+                   for arm in ("eager", "graph")}
+            synthesize_kernel.launches = 0
+            step0 = eng.iterations
+
+            def call(arm):
+                seeds = [fold_in(SEED, 60_000 + eng.iterations + j) for j in range(GRAPH_K)]
+                fns[arm](eng.state, pool, seeds)
+
+            # the graph's warm-up (an eager call, then the capture, which
+            # empties the allocator's cache) first, so that the first timed
+            # eager call finds its memory cached
+            for arm, warm in (("graph", 2), ("eager", 1)):
+                for _ in range(warm):
+                    call(arm)
+            rates, event_ms = {"eager": [], "graph": []}, {"eager": [], "graph": []}
+            for arm in ("eager", "graph", "graph", "eager"):
+                for _ in range(GRAPH_TIMED_CALLS):
+                    e0 = torch.cuda.Event(enable_timing=True)
+                    e1 = torch.cuda.Event(enable_timing=True)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    e0.record()
+                    call(arm)
+                    e1.record()
+                    torch.cuda.synchronize()
+                    rates[arm].append(batch * GRAPH_K / (time.perf_counter() - t0))
+                    event_ms[arm].append(e0.elapsed_time(e1))
+            idle = {}
+            for arm in ("eager", "graph"):
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    call(arm)
+                    torch.cuda.synchronize()
+                path = os.path.join(tmp, f"10c_{arch}_{batch}_{arm}.json")
+                prof.export_chrome_trace(path)
+                names, busy, window, share = _trace_reading(path)
+                # measured only where the trace saw the call's kernels (K1
+                # among them), inside the graph too
+                seen = any("noise_synth" in name for name in names)
+                idle[arm] = {"busy_ms": busy, "window_ms": window,
+                             "idle": share if seen else None, "kernels": len(names)}
+            torch.cuda.synchronize()
+            launches_total += synthesize_kernel.launches
+            steps_total += eng.iterations - step0
+            check(synthesize_kernel.launches == eng.iterations - step0,
+                  f"10c {arch} b{batch}: {synthesize_kernel.launches} K1 launches for "
+                  f"{eng.iterations - step0} steps")
+            med = {arm: sorted(v)[len(v) // 2] for arm, v in rates.items()}
+            results[f"{arch}_b{batch}"] = {"rates": rates, "event_ms": event_ms, "median": med,
+                                          "graph_over_eager": med["graph"] / med["eager"],
+                                          "profile": idle}
+
+            def share(arm):
+                v = idle[arm]["idle"]
+                return "not measured" if v is None else f"{100 * v:.1f}%"
+
+            print(f"[10c] {arch} batch {batch}, calls of {GRAPH_K} (bf16, 512^2, turns "
+                  f"eager/graph/graph/eager): eager {', '.join(f'{r:.1f}' for r in rates['eager'])}"
+                  f" patches/s; graph {', '.join(f'{r:.1f}' for r in rates['graph'])} patches/s "
+                  f"(host clock); a call's ms by CUDA events, median eager "
+                  f"{sorted(event_ms['eager'])[GRAPH_TIMED_CALLS]:.1f}, graph "
+                  f"{sorted(event_ms['graph'])[GRAPH_TIMED_CALLS]:.1f}; "
+                  f"median graph/eager {med['graph'] / med['eager']:.3f}x; device idle in one "
+                  f"profiled call: eager {share('eager')} ({idle['eager']['busy_ms']:.1f} of "
+                  f"{idle['eager']['window_ms']:.1f} ms), graph {share('graph')} "
+                  f"({idle['graph']['busy_ms']:.1f} of {idle['graph']['window_ms']:.1f} ms, "
+                  f"{idle['graph']['kernels']} kernel names) on {card}", flush=True)
+            del eng, fns
+            torch.cuda.empty_cache()
+    return {"launches": launches_total, "steps": steps_total, "results": results}
+
+
+def phase10(card, tmp):
+    """K1's device seed (10a), the pooled call as a CUDA graph against the
+    eager loop (10b), and their rates and idle shares (10c)."""
+    import torch
+
+    t = [time.perf_counter()]
+    out = {"10a": phase10a(card)}
+    t.append(time.perf_counter())
+    pool = {"clean": _smooth_u16(128, torch.device("cuda"))}  # phase 4's pool
+    out["10b"] = phase10b(card, tmp, pool)
+    t.append(time.perf_counter())
+    out["10c"] = phase10c(card, tmp, pool)
+    t.append(time.perf_counter())
+    print(f"[10] phase 10: {t[-1] - t[0]:.1f} s (" + ", ".join(
+        f"{k} {b - a:.1f} s" for k, a, b in zip(("10a", "10b", "10c"), t, t[1:])) + "); torch "
+        f"{torch.__version__}, generators registered with the graph "
+        f"(CUDAGraph.register_generator_state)", flush=True)
+    print("[10] " + json.dumps({"10a": out["10a"], "10c": out["10c"]["results"]}), flush=True)
+    return {"launches": out["10b"]["launches"] + out["10c"]["launches"],
+            "steps": out["10b"]["steps"] + out["10c"]["steps"], "10a": out["10a"]}
+
+
 def main():
     check(len(sys.argv) == 1, f"unknown arguments {sys.argv[1:]}")
     card = phase0()
+    import torch
     phase1()
     k = phase2(card)
     s = phase3(card)
@@ -2082,19 +2404,24 @@ def main():
             "export": {k: {f: v[f] for f in ("export_s", "mb", "ms", "eager_ms", "err")}
                        for k, v in arts.items()}}), flush=True)
         p7 = phase7(card, tmp, engines, p5["ckpt"])
+        # the engines' pooled trainers hold their CUDA graphs' memory pools;
+        # later phases (and phase 9's child processes) need the card
+        for engine in engines.values():
+            engine._train_scans.clear()
+        torch.cuda.empty_cache()
         p8 = phase8(card, tmp)
         p9 = phase9(card, tmp)
-
-    import torch
+        p10 = phase10(card, tmp)
 
     from eld_tpu_torch.noise.kernels import REPLACES, SOURCE_PATH
 
     launches = (s["launches"] + pooled_launches + srgb_launches + p7["7a"]["launches"]
-                + p7["7b"]["launches"] + p8["launches"] + p9["launches"])
+                + p7["7b"]["launches"] + p8["launches"] + p9["launches"] + p10["launches"])
     # a data-parallel rank's step counts as a step: one launch each; phase
-    # 9's plain-noise arms are not on K1's path and count no steps
+    # 9's plain-noise arms are not on K1's path and count no steps; a
+    # replayed CUDA graph's K1 launches are counted by its runner
     steps = (s["steps"] + pooled_steps + srgb_steps + p7["7a"]["steps"]
-             + p7["7b"]["rank_steps"] + p8["steps"] + p9["steps"])
+             + p7["7b"]["rank_steps"] + p8["steps"] + p9["steps"] + p10["steps"])
     kernels = {"kernels": [{
         "name": "noise_synth", "route": "cuda", "source": SOURCE_PATH, "replaces": REPLACES,
         "launches": launches, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
@@ -2104,7 +2431,10 @@ def main():
         "kernel_ms_smooth": k["kernel_ms_smooth"], "ops_ms": k["ops_ms"],
         "kernel_ms_c3": k["kernel_ms_c3"], "bound_ms_c3": k["bound_ms_c3"],
         "kernel_ms_demo": p8["8k"]["kernel_ms"], "plain_ms_demo": p8["8k"]["plain_ms"],
-        "bound_ms_demo": p8["8k"]["bound_ms"], "launches_per_step": launches / steps}]}
+        "bound_ms_demo": p8["8k"]["bound_ms"], "launches_per_step": launches / steps,
+        "max_abs_err_dev_seed": p10["10a"]["max_abs_err"],
+        "kernel_ms_host_seed_10a": p10["10a"]["kernel_ms_host_seed"],
+        "kernel_ms_dev_seed": p10["10a"]["kernel_ms_dev_seed"]}]}
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

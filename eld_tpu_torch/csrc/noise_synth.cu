@@ -58,10 +58,20 @@
 //    index is row*W*C + col with one 64-bit multiply per row: no element
 //    pays a 64-bit division.
 //  - One thread per row reads the image's parameters and makes the row's
-//    (even, odd) draw into shared memory, behind a single __syncthreads():
+//    (even, odd) draw into shared memory, behind a single __syncthreads()
+//    (a second one first with the device seed):
 //    one Philox call and one Box-Muller per row instead of per element.
 //  - The ten Philox round keys are computed once on the host and passed in,
-//    so each round reads its key from the constant bank.
+//    so each round reads its key from the constant bank.  The second entry,
+//    eld_noise_synth_dev, takes the seed as a device pointer instead, as the
+//    TPU kernel takes its seed from SMEM (seed_ref): one thread of each
+//    block reads it into shared memory, and every thread derives the round
+//    keys from it into registers (ten adds per key word, once per thread).
+//    A CUDA graph captures kernel arguments by value, so only this entry
+//    lets a captured launch draw a new step's noise on every replay: the
+//    graph's seed buffer is rewritten before each replay.  Both entries run
+//    one kernel body (the kDevSeed template flag), and the same seed value
+//    gives the same keys, so their outputs are bit-identical.
 //  - For C = 4 each lane takes one pixel: one 16-byte load, the four channels
 //    in a loop unrolled at compile time (channel index, row leg and colour
 //    bias are constants), one 16-byte store.  A warp's 32 lanes then run the
@@ -95,9 +105,10 @@ struct U4 {
   uint32_t x, y, z, w;
 };
 
-// The ten round keys of a (k0, k1) key.  The kernel takes them as an
-// argument, so each round reads its key from the constant bank instead of
-// adding it up for every element.
+// The ten round keys of a (k0, k1) key.  The host-seed kernel takes them as
+// an argument, so each round reads its key from the constant bank instead of
+// adding it up for every element; the device-seed kernel derives them once
+// per thread.
 struct RoundKeys {
   uint32_t k0[10], k1[10];
 };
@@ -229,17 +240,37 @@ __device__ __forceinline__ float synth_element(float x, uint32_t lo, uint32_t hi
   return clip ? fminf(fmaxf(o, 0.0f), 1.0f) : o;
 }
 
+// The round keys a block draws with: the host's (kDevSeed false), or those
+// of the 64-bit seed at dev_seed, which thread (0, 0) reads once for the
+// block (kDevSeed true; every thread of the block calls this).
+template <bool kDevSeed>
+__device__ __forceinline__ RoundKeys block_keys(const RoundKeys& host_keys,
+                                                const uint64_t* __restrict__ dev_seed) {
+  if constexpr (kDevSeed) {
+    __shared__ uint64_t s_seed;
+    if (threadIdx.x == 0 && threadIdx.y == 0) s_seed = *dev_seed;
+    __syncthreads();
+    const uint64_t seed = s_seed;
+    return round_keys(static_cast<uint32_t>(seed), static_cast<uint32_t>(seed >> 32));
+  } else {
+    return host_keys;
+  }
+}
+
 // Block (blockDim.x, blockDim.y) = (threads per row, rows per block); row
 // threadIdx.y of the block is the global packed row n*H + h.  kPixel4: C == 4
 // with 16-byte aligned clean/out, one float4 per lane; else one pixel per
-// lane, its C channels one by one.
-template <bool kPixel4>
+// lane, its C channels one by one.  kDevSeed: the keys come from the seed
+// at dev_seed, and host_keys is not read.
+template <bool kPixel4, bool kDevSeed>
 __global__ void __launch_bounds__(kBlockThreads)
     noise_synth_kernel(const float* __restrict__ clean, float* __restrict__ out,
                        const float* __restrict__ params, int rows, int h, int w, int c,
-                       int model, int clip, const RoundKeys keys) {
+                       int model, int clip, const RoundKeys host_keys,
+                       const uint64_t* __restrict__ dev_seed) {
   __shared__ float s_par[kMaxRowsPerBlock][kParamStride];
   __shared__ float s_row[kMaxRowsPerBlock][2];
+  const RoundKeys keys = block_keys<kDevSeed>(host_keys, dev_seed);
   const int r = threadIdx.y;
   const int row = blockIdx.x * blockDim.y + r;
   if (threadIdx.x == 0 && row < rows) {
@@ -304,16 +335,13 @@ __global__ void __launch_bounds__(kBlockThreads)
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// Launches the kernel on ``stream``; returns cudaGetLastError() after the launch,
-// or cudaErrorInvalidValue for a shape the grid cannot index (N*H or W*C not
-// below 2^31).  clean/out: contiguous f32 (n, h, w, c); params: f32 (n, 12) as
-// laid out above.
-int eld_noise_synth(const float* clean, float* out, const float* params, int64_t n, int64_t h,
-                    int64_t w, int64_t c, int model, int clip, uint64_t seed, void* stream) {
+// One launch of the kernel for (keys, dev_seed) on ``stream``; returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a shape
+// the grid cannot index (N*H or W*C not below 2^31).
+template <bool kDevSeed>
+int launch(const float* clean, float* out, const float* params, int64_t n, int64_t h, int64_t w,
+           int64_t c, int model, int clip, const RoundKeys& keys, const uint64_t* dev_seed,
+           void* stream) {
   if (n * h * w * c == 0) return 0;
   const int64_t rows = n * h;
   if (rows > INT32_MAX || w * c > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
@@ -325,12 +353,38 @@ int eld_noise_synth(const float* clean, float* out, const float* params, int64_t
   const int64_t blocks = (rows + block.y - 1) / block.y;
   const bool pixel4 = c == 4 && reinterpret_cast<uintptr_t>(clean) % 16 == 0 &&
                       reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const auto kernel = pixel4 ? noise_synth_kernel<true> : noise_synth_kernel<false>;
+  const auto kernel =
+      pixel4 ? noise_synth_kernel<true, kDevSeed> : noise_synth_kernel<false, kDevSeed>;
   kernel<<<static_cast<unsigned>(blocks), block, 0, static_cast<cudaStream_t>(stream)>>>(
       clean, out, params, static_cast<int>(rows), static_cast<int>(h), static_cast<int>(w),
-      static_cast<int>(c), model, clip,
-      round_keys(static_cast<uint32_t>(seed), static_cast<uint32_t>(seed >> 32)));
+      static_cast<int>(c), model, clip, keys, dev_seed);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches the kernel on ``stream`` with the 64-bit step seed ``seed``;
+// returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
+// a shape the grid cannot index (N*H or W*C not below 2^31).  clean/out:
+// contiguous f32 (n, h, w, c); params: f32 (n, 12) as laid out above.
+int eld_noise_synth(const float* clean, float* out, const float* params, int64_t n, int64_t h,
+                    int64_t w, int64_t c, int model, int clip, uint64_t seed, void* stream) {
+  return launch<false>(clean, out, params, n, h, w, c, model, clip,
+                       round_keys(static_cast<uint32_t>(seed), static_cast<uint32_t>(seed >> 32)),
+                       nullptr, stream);
+}
+
+// The same launch with the seed read on the device from ``seed`` (one
+// uint64 in device memory) when the kernel runs, not when it is launched:
+// a captured launch replays with whatever the buffer then holds.  Its
+// output equals eld_noise_synth's for the same seed value, bit for bit.
+int eld_noise_synth_dev(const float* clean, float* out, const float* params, int64_t n,
+                        int64_t h, int64_t w, int64_t c, int model, int clip,
+                        const uint64_t* seed, void* stream) {
+  if (seed == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<true>(clean, out, params, n, h, w, c, model, clip, RoundKeys{}, seed, stream);
 }
 
 // The kernel's generator on the host, for known-answer checks.

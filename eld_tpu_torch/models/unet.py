@@ -109,7 +109,9 @@ class UNetSeeInDark(nn.Module):
 
     def _run(self, fn, *args):
         if self.remat and self.training and torch.is_grad_enabled():
-            return checkpoint(fn, *args, use_reentrant=False)
+            # the U-Net draws no random numbers, so there is no RNG state to
+            # replay in the recompute (and reading it breaks CUDA graph capture)
+            return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
         return fn(*args)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -11,6 +11,13 @@ The kernel draws its random numbers from Philox4x32-10 keyed by the step
 seed.  ``kernel_draws`` recomputes those same draws in PyTorch, so the
 kernel can be held element by element against ``noise_core`` fed with
 them (``chip_smoke.py`` does so on the card).
+
+The seed is a Python int, or a one-element int64 tensor on the batch's
+device holding its 64 bits (``seed_tensor``).  On a card the tensor is
+read by the kernel when it runs, not when it is launched, as the TPU
+kernel reads its seed from SMEM: a CUDA graph that captured the launch
+draws whatever the tensor holds at each replay.  The two give the same
+output for the same seed value, bit for bit.
 """
 
 from __future__ import annotations
@@ -51,6 +58,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
         ctypes.c_int, ctypes.c_int, ctypes.c_uint64, ctypes.c_void_p,
     ]
+    # the same with the seed as a device pointer (one uint64 in device memory)
+    lib.eld_noise_synth_dev.restype = ctypes.c_int
+    lib.eld_noise_synth_dev.argtypes = lib.eld_noise_synth.argtypes[:9] + [
+        ctypes.c_void_p, ctypes.c_void_p]
     lib.eld_philox4x32_10.restype = None
     lib.eld_philox4x32_10.argtypes = [ctypes.c_void_p] * 3
     lib.eld_cuda_error_string.restype = ctypes.c_char_p
@@ -97,37 +108,67 @@ def _check(clean: torch.Tensor, params: NoiseParams):
             raise ValueError(f"params.{name} has {t.shape[0]} rows for a batch of {clean.shape[0]}")
 
 
-def launch(lib: ctypes.CDLL, seed: int, clean: torch.Tensor, params: NoiseParams,
+def seed_tensor(seed: int, device=None) -> torch.Tensor:
+    """A one-element int64 tensor holding the 64 bits of ``seed`` (seeds
+    of 2^63 and above read as negative int64, the same bits)."""
+    return torch.tensor([seed_int64(seed)], dtype=torch.int64, device=device)
+
+
+def seed_int64(seed: int) -> int:
+    """``seed``'s 64 bits as a signed int64 value."""
+    seed = int(seed) & _MASK64
+    return seed - (1 << 64) if seed >> 63 else seed
+
+
+def _check_seed(seed, clean: torch.Tensor):
+    if not isinstance(seed, torch.Tensor):
+        return
+    if seed.dtype != torch.int64 or seed.numel() != 1 or not seed.is_contiguous():
+        raise ValueError(f"a seed tensor must be one contiguous int64 element, got "
+                         f"{seed.dtype} of shape {tuple(seed.shape)}")
+    if seed.device != clean.device:
+        raise ValueError(f"the seed tensor is on {seed.device}, clean on {clean.device}")
+
+
+def launch(lib: ctypes.CDLL, seed, clean: torch.Tensor, params: NoiseParams,
            model: str, clip: bool) -> torch.Tensor:
     """One launch of ``lib``'s kernel on a CUDA tensor, on the current
-    stream; raises if the launch fails.  Counts nothing: the count belongs
-    to ``synthesize_kernel``, the entry point of the port."""
+    stream; raises if the launch fails.  ``seed`` an int takes the host-seed
+    entry, a one-element int64 tensor on the card the device-seed entry.
+    Counts nothing: the count belongs to ``synthesize_kernel``, the entry
+    point of the port."""
     flags = model_flags(model)
     n, h, w, c = clean.shape
     out = torch.empty_like(clean)
     packed = pack_params(params, n)
+    args = (clean.data_ptr(), out.data_ptr(), packed.data_ptr(), n, h, w, c, flags,
+            int(bool(clip)))
     with torch.cuda.device(clean.device):
         stream = torch.cuda.current_stream(clean.device).cuda_stream
-        rc = lib.eld_noise_synth(clean.data_ptr(), out.data_ptr(), packed.data_ptr(),
-                                 n, h, w, c, flags, int(bool(clip)), int(seed) & _MASK64, stream)
+        if isinstance(seed, torch.Tensor):
+            rc = lib.eld_noise_synth_dev(*args, seed.data_ptr(), stream)
+        else:
+            rc = lib.eld_noise_synth(*args, int(seed) & _MASK64, stream)
     if rc != 0:
         raise RuntimeError(f"noise_synth kernel launch failed: "
                            f"{lib.eld_cuda_error_string(rc).decode()} ({rc})")
     return out
 
 
-def synthesize_kernel(seed: int, clean: torch.Tensor, params: NoiseParams,
+def synthesize_kernel(seed, clean: torch.Tensor, params: NoiseParams,
                       model: str = "PGrqc", clip: bool = True) -> torch.Tensor:
     """Fused noise synthesis: clean (N, H, W, C) f32 + params (N,) -> noisy.
 
-    ``seed`` is a 64-bit integer, distinct per step.  CUDA tensors launch
-    the kernel (and count the launch in ``synthesize_kernel.launches``);
+    ``seed`` is a 64-bit integer, distinct per step, or a one-element int64
+    tensor on ``clean``'s device holding one (``seed_tensor``).  CUDA
+    tensors launch the kernel (and count the launch in
+    ``synthesize_kernel.launches``; a replayed CUDA graph counts its own);
     CPU tensors run the plain version on a generator seeded with ``seed``.
     """
     _check(clean, params)
-    seed = int(seed) & _MASK64
+    _check_seed(seed, clean)
     if clean.device.type == "cpu":
-        gen = torch.Generator().manual_seed(seed)
+        gen = torch.Generator().manual_seed(int(seed) & _MASK64)
         return synthesize(gen, clean, params, model=model, clip=clip)
     if clean.device.type != "cuda":
         raise ValueError(f"no noise kernel for device {clean.device}")

@@ -33,7 +33,7 @@ from typing import Optional
 
 import torch
 
-from eld_tpu_torch.train.state import TrainState
+from eld_tpu_torch.train.state import TrainState, load_optimizer_state, optimizer_state_dict
 
 _NUMBERED = re.compile(r"model_(\d{3,})_(\d{8,})\.pt$")
 
@@ -117,7 +117,7 @@ def save_checkpoint(save_dir: str, state: TrainState, label: Optional[str] = Non
     an earlier background write lands first, so saves land in call order."""
     os.makedirs(save_dir, exist_ok=True)
     path = checkpoint_path(save_dir, state, label)
-    payload = {"netG": state.model.state_dict(), "opt_g": state.optimizer.state_dict(),
+    payload = {"netG": state.model.state_dict(), "opt_g": optimizer_state_dict(state.optimizer),
                "epoch": state.epoch, "iterations": state.step}
     _WRITER.wait()
     if not async_:
@@ -177,7 +177,7 @@ def load_checkpoint(path: str, state: TrainState) -> TrainState:
     ck = _read(path, next(state.model.parameters()).device)
     state.model.load_state_dict(ck["netG"])
     if "opt_g" in ck:
-        state.optimizer.load_state_dict(ck["opt_g"])
+        load_optimizer_state(state.optimizer, ck["opt_g"])
     state.epoch = int(ck.get("epoch", 0))
     state.step = int(ck.get("iterations", 0))
     return state

@@ -78,6 +78,9 @@ class Engine:
         # per-(dataset, metric) best values for best-checkpoint tracking;
         # persisted to best_val.json so a resumed run keeps the true best
         self.best_val: dict = {}
+        # make_train_scan's trainers by (K, batch); on a card each holds its
+        # CUDA graph, which drops itself when called on another pool or
+        # optimizer state, and which a load drops at once
         self._train_scans = {}
 
         # torch's default init is the reference's; seeded without touching
@@ -275,7 +278,8 @@ class Engine:
         Step i is seeded with fold_in(seed, i), as in ``train``, so a
         resumed run reproduces the picks and the noise whatever K is.
         Metrics are read one call late, so the host queues call i+1 while
-        the device runs call i."""
+        the device runs call i.  On a card each (K, batch) runs as one CUDA
+        graph from its second call on a pool (``steps.make_train_scan``)."""
         cfg = self.cfg
         print(f"\nEpoch: {self.epoch} (lr {get_learning_rate(self.state):.2e}, "
               f"scan x{steps_per_call})")
@@ -540,6 +544,8 @@ class Engine:
             raise FileNotFoundError(
                 f"no checkpoint found in {self.cfg.save_dir} (epoch={resume_epoch})")
         ckpt.load_checkpoint(path, self.state)
+        # the optimizer's state tensors are new: no captured graph holds them
+        self._train_scans.clear()
         self._load_best_val()
         print(f"Resume from epoch {self.epoch}, iteration {self.iterations}")
         return path

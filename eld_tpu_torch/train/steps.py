@@ -9,14 +9,19 @@ takes paired {"input", "target"} batches (the ``train_real`` path).
 
 ``make_train_scan`` is the pooled form: K steps per call over a patch
 pool that lives on the device, each step picking and augmenting its own
-batch there.  ``make_eval_forward`` is the inference forward with the
-edge-pad to the arch's alignment, or the 4-tile chop.
+batch there.  On a card it is one CUDA graph per call, as eld_tpu's is
+one ``lax.scan`` program: captured once, then replayed with new seeds.
+``make_eval_forward`` is the inference forward with the edge-pad to the
+arch's alignment, or the 4-tile chop.
 
 Randomness is a pure function of the step seed, which the Engine derives
 from (cfg.seed, iteration) with ``fold_in``, so a resumed run sees the
 same noise and the same picks.  Each step seed is split the same way
 everywhere: ``fold_in(seed, 0)`` samples the noise parameters, 1 seeds
-the noise, 2 the pool picks and 3 the augmentation masks.
+the noise, 2 the pool picks and 3 the augmentation masks.  A step draws
+through a ``StepRandom`` (the generators of 0, 2 and 3) and the noise
+seed, an int or, in a captured call, a one-element int64 tensor on the
+card that the noise kernel reads when it runs.
 
 Data parallelism (``shard=(rank, world)``, one rank per card): every rank
 draws the GLOBAL batch's randomness from the step seed (the noise
@@ -31,7 +36,8 @@ mean over ranks, reduced once per call.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Optional, Sequence
+import sys
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as onp
 import torch
@@ -40,7 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from eld_tpu_torch.models.losses import init_loss
-from eld_tpu_torch.noise.kernels import synthesize_kernel
+from eld_tpu_torch.noise.kernels import seed_int64, synthesize_kernel
 from eld_tpu_torch.noise.model import synthesize
 from eld_tpu_torch.noise.params import CameraParamsBank, sample_params_batch, take_rows
 from eld_tpu_torch.ops.chop import forward_chop
@@ -78,9 +84,12 @@ def to_f32(x: torch.Tensor) -> torch.Tensor:
 
 
 def _autocast(device: torch.device, dtype: Optional[torch.dtype]):
+    """Autocast to ``dtype`` (none for None), without the weight-cast cache,
+    as CUDA graph capture needs: the U-Net casts each weight once a forward,
+    so the cache saves nothing."""
     if dtype is None:
         return contextlib.nullcontext()
-    return torch.autocast(device.type, dtype=dtype)
+    return torch.autocast(device.type, dtype=dtype, cache_enabled=False)
 
 
 def rank_noise_seed(seed: int, rank: int = 0, world: int = 1) -> int:
@@ -91,6 +100,40 @@ def rank_noise_seed(seed: int, rank: int = 0, world: int = 1) -> int:
     replay streams (eld_tpu/noise/kernels.py:78-85)."""
     noise = fold_in(seed, 1)
     return noise if world == 1 else fold_in(noise, rank)
+
+
+class StepRandom:
+    """The generators one step draws from, on one device: the noise
+    parameters, the pool picks and the augmentation masks, reseeded from
+    the step seed by ``reseed`` (``fold_in(seed, 0)``, 2 and 3)."""
+
+    def __init__(self, device):
+        self.params = torch.Generator(device=device)
+        self.pick = torch.Generator(device=device)
+        self.augment = torch.Generator(device=device)
+
+    def reseed(self, seed: int) -> "StepRandom":
+        self.params.manual_seed(fold_in(seed, 0))
+        self.pick.manual_seed(fold_in(seed, 2))
+        self.augment.manual_seed(fold_in(seed, 3))
+        return self
+
+    def generators(self) -> Tuple[torch.Generator, ...]:
+        return self.params, self.pick, self.augment
+
+
+_STEP_RANDOM: Dict[torch.device, StepRandom] = {}
+
+
+def step_random(device, seed: int) -> StepRandom:
+    """The process's ``StepRandom`` for ``device``, reseeded from ``seed``:
+    the per-step path and ``pick_batch`` reuse one set of generators per
+    device instead of making new ones every step."""
+    device = torch.device(device)
+    rng = _STEP_RANDOM.get(device)
+    if rng is None:
+        rng = _STEP_RANDOM[device] = StepRandom(device)
+    return rng.reseed(seed)
 
 
 def global_mean(values: torch.Tensor, world: int = 1) -> torch.Tensor:
@@ -104,8 +147,12 @@ def global_mean(values: torch.Tensor, world: int = 1) -> torch.Tensor:
 
 
 def _make_local_step(loss, noise_model, bank, k_mode, noise_impl, autocast_dtype, forward, shard):
-    """``step(state, batch, seed) -> loss``: one optimizer step on this
-    rank's rows, returning the rank's own loss (detached, on the device)."""
+    """``step(state, batch, rng, noise_seed) -> loss``: one optimizer step on
+    this rank's rows, drawing its noise parameters from ``rng`` (a
+    ``StepRandom`` seeded from the step seed) and its noise from
+    ``noise_seed`` (``rank_noise_seed`` of it: an int, or a one-element
+    int64 tensor on the card); returns the rank's own loss (detached, on
+    the device)."""
     synthetic = noise_model is not None
     if synthetic and bank is None:
         raise ValueError("synthetic training needs a CameraParamsBank")
@@ -113,31 +160,23 @@ def _make_local_step(loss, noise_model, bank, k_mode, noise_impl, autocast_dtype
         raise ValueError(f"noise_impl must be one of {NOISE_IMPLS}, got {noise_impl!r}")
     loss_fn = init_loss(loss)
     rank, world = shard
-    gens: Dict[torch.device, torch.Generator] = {}
 
-    def generator(device, seed):
-        gen = gens.get(device)
-        if gen is None:
-            gen = gens[device] = torch.Generator(device=device)
-        return gen.manual_seed(seed)
-
-    def make_noisy(seed, clean):
+    def make_noisy(rng, noise_seed, clean):
         n = clean.shape[0] * world  # the global batch's parameters, then this rank's rows
-        nparams = sample_params_batch(generator(clean.device, fold_in(seed, 0)), bank, n,
-                                      k_mode=k_mode)
+        nparams = sample_params_batch(rng.params, bank, n, k_mode=k_mode)
         if world > 1:
             nparams = take_rows(nparams, rank_rows(rank, world, n))
-        noise_seed = rank_noise_seed(seed, rank, world)
         if noise_impl == "plain":
-            return synthesize(generator(clean.device, noise_seed), clean, nparams,
+            # the parameters are drawn: their generator is reseeded for the noise
+            return synthesize(rng.params.manual_seed(int(noise_seed)), clean, nparams,
                               model=noise_model, clip=True)
         return synthesize_kernel(noise_seed, clean, nparams, model=noise_model, clip=True)
 
-    def step(state: TrainState, batch, seed: int) -> torch.Tensor:
+    def step(state: TrainState, batch, rng: StepRandom, noise_seed) -> torch.Tensor:
         if synthetic:
             clean = to_f32(batch["clean"]).contiguous()
             with torch.no_grad():
-                noisy = make_noisy(seed, clean)
+                noisy = make_noisy(rng, noise_seed, clean)
             target = clean
         else:
             noisy = to_f32(batch["input"])
@@ -186,7 +225,9 @@ def make_train_step(
                             forward, shard)
 
     def reported(state: TrainState, batch, seed: int):
-        return {"Pixel": global_mean(step(state, batch, seed), shard[1])}
+        rng = step_random(next(iter(batch.values())).device, seed)
+        loss = step(state, batch, rng, rank_noise_seed(seed, *shard))
+        return {"Pixel": global_mean(loss, shard[1])}
 
     return reported
 
@@ -222,27 +263,162 @@ def _gather_rows(pool: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return pool[idx]
 
 
-def pick_batch(pool: Dict[str, torch.Tensor], batch: int, seed: int,
-               rows: Optional[slice] = None, augment: bool = True):
+def pick_batch(pool: Dict[str, torch.Tensor], batch: int, seed: Optional[int],
+               rows: Optional[slice] = None, augment: bool = True,
+               rng: Optional[StepRandom] = None):
     """One step's batch from a device-resident pool: ``batch`` rows picked
     uniformly with replacement, the same rows from every entry (paired
     pools stay aligned), converted to f32, then jointly augmented (unless
     ``augment`` is false; the picks are the same either way).  With
     ``rows`` only those rows of the picked batch (a data-parallel rank's)
-    are gathered and augmented."""
+    are gathered and augmented.  The picks and masks come from ``rng``,
+    already seeded from the step seed, or else from the process's
+    generators reseeded from ``seed`` (``step_random``)."""
     first = next(iter(pool.values()))
     dev = first.device
-    gen = torch.Generator(device=dev).manual_seed(fold_in(seed, 2))
-    idx = torch.randint(0, first.shape[0], (batch,), generator=gen, device=dev)
+    if rng is None:
+        rng = step_random(dev, seed)
+    idx = torch.randint(0, first.shape[0], (batch,), generator=rng.pick, device=dev)
     if rows is not None:
         idx = idx[rows]
     out = {k: to_f32(_gather_rows(v, idx)) for k, v in pool.items()}
     if not augment:
         return out
-    masks = augment_masks(torch.Generator(device=dev).manual_seed(fold_in(seed, 3)), batch)
+    masks = augment_masks(rng.augment, batch)
     if rows is not None:
         masks = tuple(m[rows] for m in masks)
     return dict(zip(out, augment_batch(list(out.values()), *masks)))
+
+
+_said_eager = False
+
+
+def _log_eager_once():
+    global _said_eager
+    if not _said_eager:
+        _said_eager = True
+        print("[i] pooled trainer: eager launches on the card under data parallelism "
+              "(DDP's hooks and NCCL are not captured in a CUDA graph)", file=sys.stderr)
+
+
+def _binding(state: TrainState, pool: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
+    """The tensors a captured call reads and writes in place: the pool,
+    the parameters, the optimizer's state and rate tensors.  A graph is
+    valid while these are the same tensors on the same storage."""
+    out = list(pool.values()) + list(state.model.parameters())
+    for group in state.optimizer.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            out.append(group["lr"])
+        for p in group["params"]:
+            out += [v for v in state.optimizer.state.get(p, {}).values()
+                    if isinstance(v, torch.Tensor)]
+    return out
+
+
+def _same_binding(a: List[torch.Tensor], b: List[torch.Tensor]) -> bool:
+    return len(a) == len(b) and all(x is y and x.data_ptr() == y.data_ptr()
+                                    for x, y in zip(a, b))
+
+
+class _CapturedCall:
+    """K pooled steps on one card as one CUDA graph (PyTorch's whole-
+    network capture): the picks, augmentation, noise parameters, K1, the
+    forward, backward and Adam of every step, replayed by one launch.
+
+    The graph's randomness is re-drawn at every replay: step j draws its
+    picks, masks and parameters from the generators of slot j, registered
+    with the graph and reseeded on the host before the replay, and K1
+    reads its seed from element j of a device buffer, filled by one copy
+    from pinned memory per call.  So step j of a replay draws exactly
+    what the eager loop draws for ``seeds[j]``.
+
+    The first call for a binding (``_binding``) runs eagerly on a side
+    stream, a real call with its own seeds; the next captures the K steps
+    (executing nothing) and replays them, and every later call replays.
+    A call whose binding changed (another pool, a loaded optimizer state)
+    starts over with an eager call.  A replay runs no Python, so the call
+    advances ``state.step`` by K and ``synthesize_kernel.launches`` by the
+    launches the graph holds.  A call returns (mean loss, the K losses);
+    after a replay they are copies of the graph's outputs, which the next
+    replay overwrites.
+    """
+
+    def __init__(self, run, k: int, device: torch.device):
+        self.run, self.k, self.device = run, k, device
+        self.slots = [StepRandom(device) for _ in range(k)]
+        card = device.type == "cuda"
+        self.seeds_host = torch.empty(k, dtype=torch.int64, pin_memory=card)
+        self.seeds = torch.empty(k, dtype=torch.int64, device=device)
+        # recorded after each copy from the pinned buffer (None off the card,
+        # where the copy is synchronous)
+        self.copied = torch.cuda.Event() if card else None
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.binding: Optional[List[torch.Tensor]] = None
+        self.out: Tuple[torch.Tensor, ...] = ()  # the graph's (mean, losses)
+        self.launches = 0
+        self.replays = 0
+
+    def reset(self):
+        """Drop the graph (and its memory pool); the next call runs eagerly."""
+        self.graph, self.binding, self.out = None, None, ()
+
+    def _draws(self):
+        return [(rng, self.seeds[j:j + 1]) for j, rng in enumerate(self.slots)]
+
+    def _load_seeds(self, seeds: Sequence[int]):
+        """Reseed slot j from ``seeds[j]`` and copy the noise seeds
+        ``rank_noise_seed(seeds[j])`` into the graph's seed buffer."""
+        for rng, seed in zip(self.slots, seeds):
+            rng.reseed(seed)
+        if self.copied is not None:
+            self.copied.synchronize()  # the last call's copy has read the pinned buffer
+        self.seeds_host.numpy()[:] = [seed_int64(rank_noise_seed(s)) for s in seeds]
+        self.seeds.copy_(self.seeds_host, non_blocking=True)
+        if self.copied is not None:
+            self.copied.record()
+
+    def __call__(self, state: TrainState, pool: Dict[str, torch.Tensor], seeds: Sequence[int]):
+        if self.binding is not None and not _same_binding(self.binding, _binding(state, pool)):
+            self.reset()
+        self._load_seeds(seeds)
+        if self.binding is None:
+            return self._eager(state, pool)
+        if self.graph is None:
+            self._capture(state, pool)
+        self.graph.replay()
+        self.replays += 1
+        state.step += self.k
+        synthesize_kernel.launches += self.launches
+        return self.out[0].clone(), self.out[1].clone()
+
+    def _eager(self, state, pool):
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            losses = self.run(state, pool, self._draws())
+            out = (losses.mean(), losses)
+        main.wait_stream(side)
+        for t in out:
+            t.record_stream(main)  # read on the main stream after this call
+        self.binding = _binding(state, pool)
+        return out
+
+    def _capture(self, state, pool):
+        graph = torch.cuda.CUDAGraph()
+        for rng in self.slots:
+            for gen in rng.generators():
+                graph.register_generator_state(gen)
+        step, launches = state.step, synthesize_kernel.launches
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                losses = self.run(state, pool, self._draws())
+                out = (losses.mean(), losses)
+            self.launches = synthesize_kernel.launches - launches
+        finally:
+            # the capture ran the steps' Python, not their device work
+            state.step, synthesize_kernel.launches = step, launches
+        self.graph, self.out = graph, out
 
 
 def make_train_scan(
@@ -257,6 +433,7 @@ def make_train_scan(
     autocast_dtype: Optional[torch.dtype] = None,
     forward: Optional[nn.Module] = None,
     shard: tuple = (0, 1),
+    capture: bool = True,
 ):
     """K train steps per call over a device-resident patch pool.
 
@@ -268,27 +445,54 @@ def make_train_scan(
     exactly ``make_train_step``'s step on that batch with ``seeds[j]``.
     ``augment=False`` keeps the picked patches as they are (the synthetic
     demo's scan-vs-per-step A/B, whose per-step arm never augments).  Metrics
-    are the mean and the last of the K losses, left on the device.
+    are the mean and the last of the K losses, left on the device; the
+    returned function's ``losses`` holds the last call's K losses.
     ``batch`` is the global batch; under ``shard=(rank, world)`` each step
     keeps the rank's rows of it, and the K losses are averaged over the
     ranks in one all-reduce per call.
 
-    The K steps run as a host loop of eager launches.  They are not
-    captured in a CUDA graph: the noise kernel takes its seed as a host
-    argument, so a captured graph would replay one seed's noise every step.
+    On a card, the K steps of a call are one CUDA graph (``_CapturedCall``):
+    the first call runs eagerly, the second captures and replays, every
+    later one replays, so a call costs the host one launch and its seeds,
+    as eld_tpu's ``lax.scan`` does.  The same seeds give the same picks,
+    masks, parameters and noise as the eager loop.  The eager loop runs
+    for CPU tensors, and under data parallelism (a ``forward`` wrapper or
+    ``shard[1] > 1``, i.e. ``--multihost``), since DDP's gradient hooks
+    and NCCL inside a graph are not captured; it says so once.
+    ``capture=False`` runs the eager loop on a card too (the A/B against
+    the graph).  A capture or replay that fails raises.
     """
     step = _make_local_step(loss, noise_model, bank, k_mode, "auto", autocast_dtype, forward,
                             shard)
     rows = rank_rows(*shard, batch) if shard[1] > 1 else None
+    data_parallel = forward is not None or shard[1] > 1
+    captured: Dict[torch.device, _CapturedCall] = {}
+
+    def run(state: TrainState, pool, draws: Iterable[Tuple[StepRandom, object]]):
+        """The K steps, each drawing from its (StepRandom, noise seed)."""
+        losses = [step(state, pick_batch(pool, batch, None, rows, augment, rng=rng), rng,
+                       noise_seed)
+                  for rng, noise_seed in draws]
+        return global_mean(torch.stack(losses), shard[1])
 
     def multi(state: TrainState, pool: Dict[str, torch.Tensor], seeds: Sequence[int]):
         if len(seeds) != steps_per_call:
             raise ValueError(f"{len(seeds)} seeds for {steps_per_call} steps per call")
-        losses = torch.stack([step(state, pick_batch(pool, batch, seed, rows, augment), seed)
-                              for seed in seeds])
-        losses = global_mean(losses, shard[1])
-        return {"Pixel": losses.mean(), "PixelLast": losses[-1]}
+        dev = next(iter(pool.values())).device
+        if dev.type == "cuda" and capture and not data_parallel:
+            call = captured.get(dev)
+            if call is None:
+                call = captured[dev] = _CapturedCall(run, steps_per_call, dev)
+            mean, multi.losses = call(state, pool, seeds)
+            return {"Pixel": mean, "PixelLast": multi.losses[-1]}
+        if dev.type == "cuda" and capture:
+            _log_eager_once()
+        # the process's StepRandom, reseeded from each step's seed just before its step
+        multi.losses = run(state, pool, ((step_random(dev, s), rank_noise_seed(s, *shard))
+                                         for s in seeds))
+        return {"Pixel": multi.losses.mean(), "PixelLast": multi.losses[-1]}
 
+    multi.captured = captured  # the card's captured calls, by device
     return multi
 
 

@@ -1,4 +1,5 @@
-"""The port's noise kernel, pooled trainer, eval forward, ISP, serving
+"""The port's noise kernel (and its device-seed entry), pooled trainer
+(and its CUDA graph against the eager loop), eval forward, ISP, serving
 artifacts, spatial forward, data-parallel picks, asynchronous saves, the
 synthetic demo, apply_noise, the demosaic and the benchmark tools on the
 card (marked ``cuda``; skipped where there is none).
@@ -21,14 +22,15 @@ from eld_tpu_torch.core import emor, isp
 from eld_tpu_torch.data.loader import pool_to_device
 from eld_tpu_torch.data.patchstore import PatchStore, PatchStoreWriter
 from eld_tpu_torch.models import build_arch
-from eld_tpu_torch.noise.kernels import kernel_draws, synthesize_kernel
+from eld_tpu_torch.noise.kernels import kernel_draws, seed_tensor, synthesize_kernel
 from eld_tpu_torch.noise.model import noise_core
 from eld_tpu_torch.noise.params import load_camera_params, sample_params_batch
 from eld_tpu_torch.parallel.mesh import rank_rows
 from eld_tpu_torch.parallel.spatial import make_spatial_forward
 from eld_tpu_torch.train import checkpoints as ckpt
 from eld_tpu_torch.train.engine import Engine
-from eld_tpu_torch.train.steps import make_eval_forward, pick_batch
+from eld_tpu_torch.train.state import set_learning_rate
+from eld_tpu_torch.train.steps import fold_in, make_eval_forward, make_train_scan, pick_batch
 
 
 @pytest.fixture
@@ -310,3 +312,87 @@ def test_roofline_on_the_card_counts_the_cpus_flops(cuda_device):
     assert 0 < card["mfu_pct"] <= 100
     assert card["noise_impl"] == "kernel" and cpu["noise_impl"] == "plain"
     assert card["k1_bytes_per_step"] == 2 * 2 * 64 * 64 * 4 * 4 + 2 * 12 * 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_kernel_device_seed_equals_host_seed(cuda_device, shape):
+    """K1's device-seed entry (the seed a one-element int64 tensor on the
+    card) gives the host-seed entry's output bit for bit, for seeds below
+    and above 2^63, on the float4 and the scalar path."""
+    clean, p = _batch(cuda_device, shape)
+    for seed in (99, 0x1234_5678_9ABC_DEF0, (1 << 63) + 5):
+        for model in ("eld", "Pg", "r"):
+            a = synthesize_kernel(seed, clean, p, model)
+            b = synthesize_kernel(seed_tensor(seed, cuda_device), clean, p, model)
+            assert torch.equal(a, b), (seed, model)
+
+
+@pytest.mark.cuda
+def test_a_graph_of_a_device_seed_launch_draws_each_new_seed(cuda_device):
+    """A captured device-seed launch reads its seed when it runs: each
+    replay after a new seed is written to the buffer equals the host-seed
+    launch of that seed."""
+    clean, p = _batch(cuda_device, (2, 64, 48, 4))
+    buf = seed_tensor(0, cuda_device)
+    synthesize_kernel(buf, clean, p, "eld")  # the library is built and loaded
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = synthesize_kernel(buf, clean, p, "eld")
+    for seed in (5, 6, (1 << 63) + 1):
+        buf.copy_(seed_tensor(seed, cuda_device))
+        graph.replay()
+        assert torch.equal(out, synthesize_kernel(seed, clean, p, "eld"))
+
+
+# (K, the rate set before the call): K = 3 eager, captured and replayed,
+# replayed at rate 0; K = 2 eager back at 1e-4, then captured and replayed
+_GRAPH_CALLS = ((3, None), (3, None), (3, 0.0), (2, 1e-4), (2, None))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["unet", "unet_s2d"])
+def test_captured_pooled_calls_equal_the_eager_loop(cuda_device, tmp_path, arch):
+    """The Engine's pooled trainer on the card replays one CUDA graph per
+    (K, batch) from its second call; against make_train_scan(capture=False)
+    from the same weights, pool and seeds, every call's K losses and the
+    parameters are equal bit for bit (cuDNN held to deterministic
+    algorithms), and so are state.step and K1's launches; a rate set
+    between calls holds in the replay (at rate 0 it moves nothing)."""
+    recs = onp.random.default_rng(3).integers(0, 65535, (6, 64, 64, 4), dtype=onp.uint16)
+    pool = {"clean": torch.from_numpy(recs).to(cuda_device)}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for arm in ("eager", "graph"):
+            eng = Engine(Config(device="cuda", netG=arch, noise="eld", include=4, base_width=8,
+                                batch_size=2, bf16=True, is_train=True, no_log=True,
+                                no_verbose=True, checkpoints_dir=str(tmp_path), name=arm))
+            eager = {k: make_train_scan(eng.model, noise_model="eld", bank=eng.bank, batch=2,
+                                        steps_per_call=k, autocast_dtype=torch.bfloat16,
+                                        capture=False) for k in (3, 2)}
+            before = synthesize_kernel.launches
+            losses = []
+            for k, lr in _GRAPH_CALLS:
+                if lr is not None:
+                    set_learning_rate(eng.state, lr)
+                fn = eng._scan_fn(k) if arm == "graph" else eager[k]
+                params = [p.detach().clone() for p in eng.model.parameters()]
+                fn(eng.state, pool, [fold_in(1, eng.iterations + j) for j in range(k)])
+                losses.append(fn.losses.cpu())
+                still = all(torch.equal(a, b) for a, b in zip(params, eng.model.parameters()))
+                assert still == (lr == 0.0), (arm, k, lr)
+            replays = sum(c.replays for k in (3, 2) for c in eng._scan_fn(k).captured.values())
+            runs[arm] = (losses, {k: v.cpu() for k, v in eng.model.state_dict().items()},
+                         eng.iterations, synthesize_kernel.launches - before, replays)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (le, pe, se, ne, _), (lg, pg, sg, ng, rg) = runs["eager"], runs["graph"]
+    assert rg == 3
+    assert se == sg == ne == ng == sum(k for k, _ in _GRAPH_CALLS)
+    for a, b in zip(le, lg):
+        assert torch.equal(a, b)
+    for name, v in pe.items():
+        assert torch.equal(v, pg[name]), name
