@@ -105,6 +105,23 @@ Phases, one line or block of output each; any failure exits non-zero:
      patches/s graph vs eager in turns, unet and unet_s2d at batch 8 and
      16 (host clock and CUDA events), and the device's idle share in one
      profiled call of each;
+ 11. the per-step train step and the eval forward as CUDA graphs: (a)
+     Engine.train per step, its own trainer (a graph per batch shape)
+     against the trainer built with capture=False, unet and unet_s2d,
+     synthetic (a 4-thread Loader over a 64-patch store, K1 inside) and
+     paired, two epochs at batch 8, the second at rate 0: every loss
+     and the parameters bit for bit under cudnn.deterministic, replays
+     equal to the steps less one, K1 launches equal to the synthetic
+     steps; (b) the per-step ms and patches/s graph vs eager in turns,
+     unet and unet_s2d at batch 8 and 16, the device's idle share in one
+     profiled window of each, the Loader's own ms per batch and
+     train_syn --scan 0's ms a step over the same store, its trainer a
+     graph and eager in turns; (c) the eval
+     forward graph vs eager bit for bit at 512^2, the full SID frame and
+     with --chop (and unet_s2d's edge-padded full frame), f32 and bf16,
+     its frames/s in turns and the memory reserved around the capture,
+     and Engine.eval over phase 5's SID rawpacks with equal metrics both
+     ways; (d) roofline on the graph path, unet and unet_s2d at batch 16;
 and prints the kernels' JSON line, the card line, and a last JSON line
 {"ok": true, "device": {...}}.  It imports nothing of JAX.
 """
@@ -758,6 +775,28 @@ def _write_rawpack(path, mosaic, iso, exposure):
              exposure=float(exposure), wb=np.array([2.0, 1.0, 1.5, 1.0], np.float32))
 
 
+def _write_sid_full(tmp):
+    """SID-geometry rawpacks (2848x4256 mosaics, packed 1424x2128x4): one
+    long exposure and its ratio-100 and -300 short ones, and their pair
+    list; returns (directory, pair-list path, the long mosaic)."""
+    import numpy as np
+
+    gt = _smooth_mosaic((2848, 4256), np.random.default_rng(SEED + 1))
+    sid = os.path.join(tmp, "sid_full")
+    os.makedirs(os.path.join(sid, "short"))
+    os.makedirs(os.path.join(sid, "long"))
+    pairs = [("00001_00_0.1s.npz", "00001_00_10s.npz", 100),
+             ("00001_00_0.033s.npz", "00001_00_10s.npz", 300)]
+    _write_rawpack(os.path.join(sid, "long", pairs[0][1]), gt, 100, 10)
+    for short, _, ratio in pairs:
+        dark = (512 + (gt.astype(np.float32) - 512) / ratio).astype(np.uint16)
+        _write_rawpack(os.path.join(sid, "short", short), dark, 100, 10 / ratio)
+    pairs_file = os.path.join(tmp, "pairs.txt")
+    with open(pairs_file, "w") as f:
+        f.writelines(f"{a} {b} {r}\n" for a, b, r in pairs)
+    return sid, pairs_file, gt
+
+
 def phase5(card, tmp, engines):
     """The eval stack; returns the SID-geometry rawpacks, their pair list
     and phase 4's unet checkpoint for phase 6."""
@@ -789,20 +828,7 @@ def phase5(card, tmp, engines):
     # (b) test_sid over SID-geometry rawpacks, on the card and on the CPU
     ckpt = os.path.join(tmp, "ck", "unet", "model_latest.pt")
     check(os.path.exists(ckpt), f"phase 4 left no {ckpt}")
-    rng = np.random.default_rng(SEED + 1)
-    gt = _smooth_mosaic((2848, 4256), rng)
-    sid = os.path.join(tmp, "sid_full")
-    os.makedirs(os.path.join(sid, "short"))
-    os.makedirs(os.path.join(sid, "long"))
-    pairs = [("00001_00_0.1s.npz", "00001_00_10s.npz", 100),
-             ("00001_00_0.033s.npz", "00001_00_10s.npz", 300)]
-    _write_rawpack(os.path.join(sid, "long", pairs[0][1]), gt, 100, 10)
-    for short, _, ratio in pairs:
-        dark = (512 + (gt.astype(np.float32) - 512) / ratio).astype(np.uint16)
-        _write_rawpack(os.path.join(sid, "short", short), dark, 100, 10 / ratio)
-    pairs_file = os.path.join(tmp, "pairs.txt")
-    with open(pairs_file, "w") as f:
-        f.writelines(f"{a} {b} {r}\n" for a, b, r in pairs)
+    sid, pairs_file, gt = _write_sid_full(tmp)
     results = {}
     for device in ("cuda", "cpu"):
         t0 = time.perf_counter()
@@ -2216,7 +2242,7 @@ def phase10b(card, tmp, pool):
                     rates.append(get_learning_rate(eng.state))
                 torch.cuda.synchronize()
                 n = synthesize_kernel.launches
-                replays = (sum(c.replays for k in (10, 3) for c in eng._scan_fn(k).captured
+                replays = (sum(c.replays for k in (10, 3) for c in eng._scan_fn(k).graphs
                                .values()) if arm == "graph" else 0)
                 runs[arm] = {"losses": losses, "params": _cpu_state(eng.model), "moves": moves,
                              "rates": rates, "steps": eng.iterations - step0, "launches": n,
@@ -2373,6 +2399,484 @@ def phase10(card, tmp):
             "steps": out["10b"]["steps"] + out["10c"]["steps"], "10a": out["10a"]}
 
 
+# ---- phase 11 -----------------------------------------------------------
+
+# 11a's two epochs: the rate of each (the second at 0: a replay that kept
+# the captured rate would move the parameters)
+STEP_EPOCH_RATES = (ADAM_LR, 0.0)
+STEP_TIMED = 10  # steps per timed turn in 11b, two turns per arm
+EVAL_TIMED = 5  # forwards per timed turn in 11c, two turns per arm
+
+
+def _step_engine(tmp, arch, synthetic, name):
+    """A full-width training Engine on the card at the README quick-start's
+    settings (bf16, batch 8, eld noise or paired), its weights from SEED."""
+    from eld_tpu_torch.config import Config
+    from eld_tpu_torch.train.engine import Engine
+
+    return Engine(Config(device="cuda", netG=arch, noise="eld" if synthetic else "", include=4,
+                         batch_size=8, bf16=True, is_train=True, no_log=True, no_verbose=True,
+                         seed=SEED, checkpoints_dir=os.path.join(tmp, "ck11"), name=name))
+
+
+def _eager_step(engine):
+    """The Engine's own per-step trainer, built with capture=False."""
+    import torch
+
+    from eld_tpu_torch.train.steps import make_train_step
+
+    cfg = engine.cfg
+    return make_train_step(engine.model, loss=cfg.loss, noise_model=cfg.noise or None,
+                           bank=engine.bank, k_mode=cfg.k_mode, autocast_dtype=torch.bfloat16,
+                           capture=False)
+
+
+def phase11a(card, tmp, store):
+    """Engine.train per step, its own trainer (a CUDA graph per batch
+    shape) against the same Engine's trainer built with capture=False:
+    unet and unet_s2d, synthetic (a 4-thread Loader over ``store``, K1
+    inside; 8 steps an epoch) and paired (4 uint16 batches from a seed),
+    two epochs, the second at rate 0; every step's loss and the parameters after each
+    epoch bit for bit under cudnn.deterministic, equal steps, K1 launches
+    equal to the synthetic steps, replays equal to the steps less one."""
+    import numpy as np
+    import torch
+
+    from eld_tpu_torch.data.datasets import CleanPatchDataset
+    from eld_tpu_torch.data.loader import Loader
+    from eld_tpu_torch.data.patchstore import PatchStore
+    from eld_tpu_torch.noise.kernels import synthesize_kernel
+    from eld_tpu_torch.train.steps import graph_replays
+
+    rng = np.random.default_rng(SEED + 11)
+    paired = [{k: rng.integers(0, 65535, SLICE_SHAPE, dtype=np.uint16)
+               for k in ("input", "target")} for _ in range(4)]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    launches_total = steps_total = 0
+    try:
+        for arch in ("unet", "unet_s2d"):
+            for synthetic in (True, False):
+                kind = "synthetic" if synthetic else "paired"
+                runs = {}
+                for arm in ("eager", "graph"):
+                    eng = _step_engine(tmp, arch, synthetic, f"s11a_{arch}_{kind}_{arm}")
+                    if arm == "eager":
+                        eng._train_step = _eager_step(eng)
+                    loader = (Loader(CleanPatchDataset(PatchStore(store), device_normalize=True,
+                                                       rng=np.random.default_rng(SEED)),
+                                     batch_size=8, shuffle=True, num_workers=4, seed=SEED,
+                                     drop_last=True)
+                              if synthetic else paired)
+                    synthesize_kernel.launches = 0
+                    params, moved = [], []
+                    for lr in STEP_EPOCH_RATES:
+                        eng.set_learning_rate(lr)
+                        before = _cpu_state(eng.model)
+                        eng.train(loader)
+                        moved.append(_mean_move(before, eng.model))
+                        params.append(_cpu_state(eng.model))
+                    torch.cuda.synchronize()
+                    runs[arm] = {"losses": [h[1]["Pixel"] for h in eng.history],
+                                 "params": params, "moved": moved, "steps": eng.iterations,
+                                 "launches": synthesize_kernel.launches,
+                                 "replays": graph_replays(eng._train_step)}
+                    launches_total += synthesize_kernel.launches
+                    steps_total += eng.iterations if synthetic else 0
+                    del eng
+                    torch.cuda.empty_cache()
+                e, g = runs["eager"], runs["graph"]
+                want = len(STEP_EPOCH_RATES) * len(loader)
+                check(e["steps"] == g["steps"] == want, f"11a {arch} {kind}: steps {e['steps']} "
+                                                        f"/ {g['steps']}, want {want}")
+                check(e["launches"] == g["launches"] == (want if synthetic else 0),
+                      f"11a {arch} {kind}: K1 launches {e['launches']} / {g['launches']}")
+                check(e["replays"] == 0 and g["replays"] == want - 1,
+                      f"11a {arch} {kind}: replays {e['replays']} / {g['replays']}, want 0 / "
+                      f"{want - 1}")
+                check(e["losses"] == g["losses"], f"11a {arch} {kind}: losses eager "
+                                                  f"{e['losses']} vs graph {g['losses']}")
+                for epoch, (a, b) in enumerate(zip(e["params"], g["params"])):
+                    diff = max(float((b[k] - v).abs().max()) for k, v in a.items())
+                    check(diff == 0, f"11a {arch} {kind}: parameters differ by {diff} after "
+                                     f"epoch {epoch}")
+                for arm, r in runs.items():
+                    check(r["moved"][0] > 0 and r["moved"][1] == 0,
+                          f"11a {arch} {kind} {arm}: mean |move| per epoch {r['moved']} (want "
+                          f"> 0 at {STEP_EPOCH_RATES[0]}, 0 at rate 0)")
+                print(f"[11a] {arch} {kind} batch 8: Engine.train per step, 2 epochs of "
+                      f"{len(loader)} steps (rates {list(STEP_EPOCH_RATES)}), CUDA graph "
+                      f"({g['replays']} replays) vs "
+                      f"capture=False, cudnn.deterministic: every loss and the parameters equal "
+                      f"bit for bit; {g['steps']} steps and {g['launches']} K1 launches in both; "
+                      f"nothing moved at rate 0; losses "
+                      f"{', '.join(f'{v:.5f}' for v in g['losses'][:4])}", flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return {"launches": launches_total, "steps": steps_total}
+
+
+def phase11b(card, tmp, store):
+    """The per-step rates, graph against capture=False in turns (eager,
+    graph, graph, eager), unet and unet_s2d at batch 8 and 16, bf16, K1,
+    a batch resident on the card: host clock around STEP_TIMED steps that
+    end in a synchronize, and CUDA events around the same steps; one
+    profiled window of STEP_TIMED steps of each arm, the device's idle
+    share read from its Chrome trace with K1 named there.  Then the
+    loader's own ms per batch (a 4-thread Loader over ``store``, alone
+    and with the copy to the card) beside train_syn --scan 0's rate over
+    the same store, its trainer a graph and eager in turns."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from eld_tpu_torch.data.datasets import CleanPatchDataset
+    from eld_tpu_torch.data.loader import Loader, prefetch_to_device
+    from eld_tpu_torch.data.patchstore import PatchStore
+    from eld_tpu_torch.noise.kernels import synthesize_kernel
+    from eld_tpu_torch.noise.params import load_camera_params
+    from eld_tpu_torch.tools import roofline, train_syn
+    from eld_tpu_torch.train.state import create_train_state
+    from eld_tpu_torch.train.steps import fold_in, make_train_step
+
+    dev = torch.device("cuda")
+    bank = load_camera_params(include=4, device=dev)
+    results, launches_total, steps_total = {}, 0, 0
+    for arch in ("unet", "unet_s2d"):
+        for batch in (8, 16):
+            model = roofline.build_model(arch, dev, skip_mode="split")
+            state = create_train_state(model)
+            fns = {arm: make_train_step(model, noise_model="eld", bank=bank,
+                                        autocast_dtype=torch.bfloat16, capture=arm == "graph")
+                   for arm in ("eager", "graph")}
+            data = {"clean": _smooth_u16(batch, dev)}
+            synthesize_kernel.launches = 0
+            n = [0]
+
+            def run(arm, steps):
+                for _ in range(steps):
+                    fns[arm](state, data, fold_in(SEED, 70_000 + n[0]))
+                    n[0] += 1
+
+            run("graph", 2)  # the eager step, then the capture
+            run("eager", 1)
+            torch.cuda.synchronize()
+            ms, event_ms = {"eager": [], "graph": []}, {"eager": [], "graph": []}
+            for arm in ("eager", "graph", "graph", "eager"):
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                e0.record()
+                run(arm, STEP_TIMED)
+                e1.record()
+                torch.cuda.synchronize()
+                ms[arm].append((time.perf_counter() - t0) / STEP_TIMED * 1e3)
+                event_ms[arm].append(e0.elapsed_time(e1) / STEP_TIMED)
+            idle = {}
+            for arm in ("eager", "graph"):
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    run(arm, STEP_TIMED)
+                    torch.cuda.synchronize()
+                path = os.path.join(tmp, f"11b_{arch}_{batch}_{arm}.json")
+                prof.export_chrome_trace(path)
+                names, busy, window, share = _trace_reading(path)
+                seen = any("noise_synth" in name for name in names)
+                idle[arm] = {"busy_ms": busy, "window_ms": window,
+                             "idle": share if seen else None, "kernels": len(names)}
+            torch.cuda.synchronize()
+            check(synthesize_kernel.launches == n[0] == state.step,
+                  f"11b {arch} b{batch}: {synthesize_kernel.launches} K1 launches for "
+                  f"{state.step} steps ({n[0]} calls)")
+            launches_total += synthesize_kernel.launches
+            steps_total += state.step
+            rates = {arm: [batch * 1e3 / m for m in v] for arm, v in ms.items()}
+            results[f"{arch}_b{batch}"] = {"ms": ms, "event_ms": event_ms, "rates": rates,
+                                          "eager_over_graph": sum(ms["eager"]) / sum(ms["graph"]),
+                                          "profile": idle}
+
+            def share(arm):
+                v = idle[arm]["idle"]
+                return "not measured" if v is None else f"{100 * v:.1f}%"
+
+            print(f"[11b] {arch} batch {batch} per step (bf16, 512^2, K1, {STEP_TIMED} steps a "
+                  f"turn, eager/graph/graph/eager): eager "
+                  f"{', '.join(f'{m:.2f}' for m in ms['eager'])} ms "
+                  f"({', '.join(f'{r:.1f}' for r in rates['eager'])} patches/s); graph "
+                  f"{', '.join(f'{m:.2f}' for m in ms['graph'])} ms "
+                  f"({', '.join(f'{r:.1f}' for r in rates['graph'])} patches/s) (host clock); "
+                  f"CUDA events eager {', '.join(f'{m:.2f}' for m in event_ms['eager'])}, graph "
+                  f"{', '.join(f'{m:.2f}' for m in event_ms['graph'])} ms; device idle in one "
+                  f"profiled window: eager {share('eager')} ({idle['eager']['busy_ms']:.1f} of "
+                  f"{idle['eager']['window_ms']:.1f} ms), graph {share('graph')} "
+                  f"({idle['graph']['busy_ms']:.1f} of {idle['graph']['window_ms']:.1f} ms) on "
+                  f"{card}", flush=True)
+            del model, state, fns, data
+            torch.cuda.empty_cache()
+
+    # the loader alone: a 4-thread Loader over the store, as train_syn builds
+    # it, one warm epoch, then two timed epochs, host only and with the copy
+    # to the card (prefetch_to_device, 2 batches in flight)
+    loader_ms = {}
+    for batch in (8, 16):
+        loader = Loader(CleanPatchDataset(PatchStore(store), device_normalize=True,
+                                          rng=np.random.default_rng(SEED)),
+                        batch_size=batch, shuffle=True, num_workers=4, seed=SEED,
+                        drop_last=True)
+        for _ in loader:
+            pass
+        for mode in ("host", "to_card"):
+            times = []
+            for epoch in range(2):
+                loader.set_epoch(epoch)
+                it = loader if mode == "host" else prefetch_to_device(loader, dev)
+                t0 = time.perf_counter()
+                count = 0
+                for b in it:
+                    count += 1
+                if mode == "to_card":
+                    torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) / count * 1e3)
+            loader_ms[f"b{batch}_{mode}"] = times
+    print(f"[11b] Loader (4 threads, uint16 records of a 64-patch store in the page cache, "
+          f"shuffled, drop_last) ms per batch, two epochs each: " + "; ".join(
+              f"{k} {', '.join(f'{v:.2f}' for v in vs)}" for k, vs in loader_ms.items()),
+          flush=True)
+    # train_syn --scan 0 over the same store, its Engine's trainer a graph
+    # (the default) or built with capture=False (patched in: no flag asks
+    # for it), in turns; the host clock at each loss read, steps 4..16 (the
+    # eager step and the capture left out), the epoch boundary included
+    from eld_tpu_torch.train import engine as engine_mod
+
+    argv = ["--traindir", os.path.dirname(store), "--checkpoints_dir", os.path.join(tmp, "ck11b"),
+            "--name", "s11b", "--noise", "eld", "--include", "4", "-b", "8", "--bf16",
+            "--epochs", "2", "--no-log", "--no-verbose", "--seed", str(SEED), "--nThreads", "4",
+            "--device", "cuda", "--scan", "0"]
+    e2e_ms = {"eager": [], "graph": []}
+    graph_step = engine_mod.make_train_step
+    try:
+        for arm in ("graph", "eager", "eager", "graph"):
+            engine_mod.make_train_step = (graph_step if arm == "graph" else
+                                          lambda *a, **kw: graph_step(*a, **kw, capture=False))
+            synthesize_kernel.launches = 0
+            engine = train_syn.main(argv)
+            torch.cuda.synchronize()
+            steps = engine.iterations
+            replays = sum(c.replays for c in engine._train_step.graphs.values())
+            check(synthesize_kernel.launches == steps == 16
+                  and replays == (steps - 1 if arm == "graph" else 0),
+                  f"11b train_syn --scan 0 {arm}: {synthesize_kernel.launches} K1 launches, "
+                  f"{steps} steps, {replays} replays")
+            launches_total += synthesize_kernel.launches
+            steps_total += steps
+            t = [h[2] for h in engine.history]
+            e2e_ms[arm].append((t[-1] - t[2]) / (len(t) - 3) * 1e3)
+            del engine
+            torch.cuda.empty_cache()
+    finally:
+        engine_mod.make_train_step = graph_step
+    print(f"[11b] train_syn --scan 0 unet batch 8 over that store, ms a step over steps 4..16 "
+          f"(turns graph/eager/eager/graph): graph {', '.join(f'{v:.2f}' for v in e2e_ms['graph'])}"
+          f", eager {', '.join(f'{v:.2f}' for v in e2e_ms['eager'])}; beside the loader's "
+          f"{', '.join(f'{v:.2f}' for v in loader_ms['b8_to_card'])} ms a batch to the card and "
+          f"the resident step's {results['unet_b8']['ms']['graph'][0]:.2f} ms (graph) / "
+          f"{results['unet_b8']['ms']['eager'][0]:.2f} ms (eager) on {card}", flush=True)
+    return {"launches": launches_total, "steps": steps_total, "results": results,
+            "loader_ms": loader_ms, "train_syn_ms": e2e_ms}
+
+
+def phase11c(card, tmp, sid, pairs_file):
+    """The eval forward as a CUDA graph per (shape, dtype) against
+    capture=False, unet from SEED's weights, f32 and bf16: bit for bit
+    under cudnn.deterministic over three calls of new inputs (and unet_s2d
+    on the full frame, its edge-padded branch), at 512^2 (the Engine's
+    crop), the SID full frame (1, 1424, 2128, 4) and the full frame with
+    --chop, every output left as it was by the later calls; frames/s in
+    turns (eager, graph, graph, eager) under the default cuDNN settings;
+    memory reserved before and after the captures.  Then Engine.eval over
+    phase 5's SID rawpacks, ratios 100, 300, 100, with the Engine's graph
+    forward and with capture=False: equal metrics."""
+    import torch
+
+    from eld_tpu_torch.config import Config
+    from eld_tpu_torch.data.datasets import SIDDataset
+    from eld_tpu_torch.data.loader import Loader
+    from eld_tpu_torch.tools import roofline
+    from eld_tpu_torch.tools.test_sid import parse_pairs_file
+    from eld_tpu_torch.train.engine import Engine
+    from eld_tpu_torch.train.steps import graph_replays, make_eval_forward
+
+    dev = torch.device("cuda")
+    cases = (("512", (1, 512, 512, 4), False), ("full", (1, 1424, 2128, 4), False),
+             ("chop", (1, 1424, 2128, 4), True))
+    models = {arch: roofline.build_model(arch, dev, skip_mode="split").eval()
+              for arch in ("unet", "unet_s2d")}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    deterministic = torch.backends.cudnn.deterministic
+    results = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        checks = [("unet", *c) for c in cases] + [("unet_s2d", "full", cases[1][1], False)]
+        for arch, tag, shape, chop in checks:
+            for dtype in (None, torch.bfloat16):
+                fwd = make_eval_forward(models[arch], chop=chop, autocast_dtype=dtype)
+                eager = make_eval_forward(models[arch], chop=chop, autocast_dtype=dtype,
+                                          capture=False)
+                xs = [torch.rand(shape, generator=gen, device=dev) for _ in range(3)]
+                outs = [fwd(x) for x in xs]
+                kept = [o.clone() for o in outs]
+                for i, (x, o, k) in enumerate(zip(xs, outs, kept)):
+                    want = eager(x)
+                    err = float((o.float() - want.float()).abs().max())
+                    check(torch.equal(o, want) and torch.equal(o, k),
+                          f"11c {arch} {tag} {dtype}: call {i} graph vs eager max |err| {err}")
+                check(graph_replays(fwd) == 2, f"11c {arch} {tag}: {graph_replays(fwd)} replays")
+                del fwd, eager, xs, outs, kept
+        print(f"[11c] eval forward, CUDA graph per (shape, dtype) vs capture=False, f32 and "
+              f"bf16, cudnn.deterministic, three calls each: unet at (1, 512, 512, 4), the full "
+              f"frame (1, 1424, 2128, 4) and with --chop, unet_s2d on the full frame "
+              f"(edge-padded): equal bit for bit, no output overwritten by a later call",
+              flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.empty_cache()
+
+    model = models["unet"]
+    for tag, shape, chop in cases:
+        x = torch.rand(shape, generator=gen, device=dev)
+        for dtype in (None, torch.bfloat16):
+            name = "bf16" if dtype else "f32"
+            fns = {arm: make_eval_forward(model, chop=chop, autocast_dtype=dtype,
+                                          capture=arm == "graph") for arm in ("eager", "graph")}
+            fns["eager"](x)
+            torch.cuda.synchronize()
+            reserved0 = torch.cuda.memory_reserved()
+            fns["graph"](x)
+            fns["graph"](x)  # the capture
+            torch.cuda.synchronize()
+            reserved1 = torch.cuda.memory_reserved()
+            fps = {"eager": [], "graph": []}
+            for arm in ("eager", "graph", "graph", "eager"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(EVAL_TIMED):
+                    fns[arm](x)
+                torch.cuda.synchronize()
+                fps[arm].append(shape[0] * EVAL_TIMED / (time.perf_counter() - t0))
+            results[f"{tag}_{name}"] = {"fps": fps, "reserved_before_mb": reserved0 / 2 ** 20,
+                                        "reserved_after_mb": reserved1 / 2 ** 20}
+            print(f"[11c] unet {tag} {tuple(shape)} {name}{' --chop' if chop else ''}: frames/s "
+                  f"(host clock, {EVAL_TIMED} forwards a turn, eager/graph/graph/eager) eager "
+                  f"{', '.join(f'{v:.1f}' for v in fps['eager'])}, graph "
+                  f"{', '.join(f'{v:.1f}' for v in fps['graph'])}; memory reserved "
+                  f"{reserved0 / 2 ** 20:.0f} MiB before the capture, "
+                  f"{reserved1 / 2 ** 20:.0f} MiB after on {card}", flush=True)
+            del fns
+            torch.cuda.empty_cache()
+        del x
+    del models, model
+    torch.cuda.empty_cache()
+
+    buckets = parse_pairs_file(pairs_file)
+    metrics = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for arm in ("eager", "graph"):
+            eng = Engine(Config(device="cuda", no_log=True, no_verbose=True, seed=SEED,
+                                checkpoints_dir=os.path.join(tmp, "ck11c"), name=f"e11c_{arm}"))
+            if arm == "eager":
+                eng._fwd = make_eval_forward(eng.model, capture=False)
+            metrics[arm] = []
+            for ratio in (100, 300, 100):
+                ds = SIDDataset(sid, buckets[ratio], memorize=False, augment=False)
+                metrics[arm].append(eng.eval(Loader(ds, batch_size=1, num_workers=0),
+                                             dataset_name=f"sid_eval_{ratio}").as_dict())
+            metrics[f"{arm}_replays"] = graph_replays(eng._fwd)
+            del eng
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    check(metrics["eager"] == metrics["graph"],
+          f"11c Engine.eval: eager {metrics['eager']} vs graph {metrics['graph']}")
+    check(metrics["graph_replays"] == 2 and metrics["eager_replays"] == 0,
+          f"11c Engine.eval: replays graph {metrics['graph_replays']}, eager "
+          f"{metrics['eager_replays']}")
+    print(f"[11c] Engine.eval over the SID rawpacks (512 center crop), ratios 100, 300, 100, "
+          f"graph forward (an eager call, then {metrics['graph_replays']} replays) vs "
+          f"capture=False: equal metrics; " + "; ".join(
+              ", ".join(f"{k} {v:.4f}" for k, v in sorted(m.items()) if k in ("PSNR", "SSIM"))
+              for m in metrics["graph"]), flush=True)
+    torch.cuda.empty_cache()
+    return {"results": results}
+
+
+def phase11d(card):
+    """roofline on the graph path, unet and unet_s2d at batch 16, bf16,
+    K1: the timed steps replay the step's graph (the counted step and the
+    capture outside the window); MFU beside phase 9c's eager reading."""
+    from eld_tpu_torch.noise.kernels import synthesize_kernel
+    from eld_tpu_torch.tools import roofline
+
+    n, h = BENCH_SHAPE[0], BENCH_SHAPE[1]
+    out, launches, steps = {}, 0, 0
+    for arch in ("unet", "unet_s2d"):
+        synthesize_kernel.launches = 0
+        rec = roofline.main(["--arch", arch, "--batch", str(n), "--patch", str(h),
+                             "--device", "cuda", "--noise_impl", "kernel"])
+        launches += synthesize_kernel.launches
+        steps += rec["steps"]
+        check(rec["graph"] and rec["graph_replays"] == rec["steps"] - 1
+              and synthesize_kernel.launches == rec["steps"],
+              f"11d {arch}: graph {rec['graph']}, {rec['graph_replays']} replays, "
+              f"{synthesize_kernel.launches} K1 launches for {rec['steps']} steps")
+        check(rec["flops_per_step"] == conv_flops(arch, n, h, h, 32) and 0 < rec["mfu_pct"] <= 100,
+              f"11d {arch}: {rec['flops_per_step']} FLOPs, MFU {rec['mfu_pct']}%")
+        print(f"[11d] roofline {arch} b{n} {h}^2 bf16 on the graph path ({rec['graph_replays']} "
+              f"replays): {rec['step_ms']} ms/step, {rec['patches_per_sec']} patches/s, "
+              f"{rec['achieved_tflops']} TFLOP/s = MFU {rec['mfu_pct']}% of 989.4, "
+              f"{rec['achieved_gbs']} GB/s on {rec['platform']} ({rec['power_limit_w']} W)",
+              flush=True)
+        out[arch] = rec
+    return {"launches": launches, "steps": steps, "results": out}
+
+
+def phase11(card, tmp, sid=None):
+    """The per-step train step and the eval forward as CUDA graphs: 11a
+    Engine.train graph vs eager bit for bit, 11b the per-step rates, idle
+    shares and the loader, 11c the eval forward graph vs eager, its
+    frames/s and Engine.eval both ways, 11d roofline on the graph path.
+    ``sid``: phase 5's (rawpack directory, pair list); written anew when
+    phase 11 runs alone."""
+    import torch
+
+    t = [time.perf_counter()]
+    store_dir = os.path.join(tmp, "train11")
+    os.makedirs(store_dir)
+    store = os.path.join(store_dir, "SID_Sony_Raw.eps")
+    _write_store(store, count=64)
+    sid, pairs_file = sid or _write_sid_full(os.path.join(tmp, "p11"))[:2]  # phase 11 alone
+    t.append(time.perf_counter())
+    out = {"11a": phase11a(card, tmp, store)}
+    t.append(time.perf_counter())
+    out["11b"] = phase11b(card, tmp, store)
+    t.append(time.perf_counter())
+    out["11c"] = phase11c(card, tmp, sid, pairs_file)
+    t.append(time.perf_counter())
+    out["11d"] = phase11d(card)
+    t.append(time.perf_counter())
+    print(f"[11] phase 11: {t[-1] - t[0]:.1f} s (" + ", ".join(
+        f"{k} {b - a:.1f} s" for k, a, b in zip(("fixtures", "11a", "11b", "11c", "11d"), t,
+                                               t[1:])) + f"); torch {torch.__version__}",
+          flush=True)
+    print("[11] " + json.dumps({"11b": out["11b"]["results"], "11b_loader_ms":
+                                out["11b"]["loader_ms"], "11b_train_syn_ms":
+                                out["11b"]["train_syn_ms"], "11c": out["11c"]["results"],
+                                "11d": {k: {f: v[f] for f in ("step_ms", "mfu_pct",
+                                                              "graph_replays")}
+                                        for k, v in out["11d"]["results"].items()}}), flush=True)
+    return {"launches": sum(out[k].get("launches", 0) for k in out),
+            "steps": sum(out[k].get("steps", 0) for k in out)}
+
+
 def main():
     check(len(sys.argv) == 1, f"unknown arguments {sys.argv[1:]}")
     card = phase0()
@@ -2404,24 +2908,29 @@ def main():
             "export": {k: {f: v[f] for f in ("export_s", "mb", "ms", "eager_ms", "err")}
                        for k, v in arts.items()}}), flush=True)
         p7 = phase7(card, tmp, engines, p5["ckpt"])
-        # the engines' pooled trainers hold their CUDA graphs' memory pools;
-        # later phases (and phase 9's child processes) need the card
+        # the engines' trainers and eval forwards hold their CUDA graphs'
+        # memory pools; later phases (and phase 9's child processes) need
+        # the card
         for engine in engines.values():
-            engine._train_scans.clear()
+            engine.release_graphs()
         torch.cuda.empty_cache()
         p8 = phase8(card, tmp)
         p9 = phase9(card, tmp)
         p10 = phase10(card, tmp)
+        torch.cuda.empty_cache()
+        p11 = phase11(card, tmp, (p5["sid"], p5["pairs"]))
 
     from eld_tpu_torch.noise.kernels import REPLACES, SOURCE_PATH
 
     launches = (s["launches"] + pooled_launches + srgb_launches + p7["7a"]["launches"]
-                + p7["7b"]["launches"] + p8["launches"] + p9["launches"] + p10["launches"])
+                + p7["7b"]["launches"] + p8["launches"] + p9["launches"] + p10["launches"]
+                + p11["launches"])
     # a data-parallel rank's step counts as a step: one launch each; phase
     # 9's plain-noise arms are not on K1's path and count no steps; a
     # replayed CUDA graph's K1 launches are counted by its runner
     steps = (s["steps"] + pooled_steps + srgb_steps + p7["7a"]["steps"]
-             + p7["7b"]["rank_steps"] + p8["steps"] + p9["steps"] + p10["steps"])
+             + p7["7b"]["rank_steps"] + p8["steps"] + p9["steps"] + p10["steps"]
+             + p11["steps"])
     kernels = {"kernels": [{
         "name": "noise_synth", "route": "cuda", "source": SOURCE_PATH, "replaces": REPLACES,
         "launches": launches, "max_abs_err": k["max_abs_err"], "ms": k["ms"],

@@ -98,7 +98,9 @@ def noise_core(clean: torch.Tensor, p: NoiseParams, model: str,
     if "r" in model:
         rows = draws["row_n"] * p.R_scale.reshape(n, 1, 1)  # (N, H, 2)
         if c == 4:  # packed (R, G1) on even sensor rows, (B, G2) on odd
-            row_noise = rows[:, :, None, [0, 0, 1, 1]]
+            # rows[..., [0, 0, 1, 1]] without an index list, whose copy to
+            # the device cannot be captured in a CUDA graph
+            row_noise = rows[:, :, None, :, None].expand(-1, -1, 1, 2, 2).reshape(n, -1, 1, 4)
         else:       # non-Bayer layouts: one draw per packed row
             row_noise = rows[:, :, None, 0:1]
         z = z + row_noise

@@ -24,6 +24,10 @@ failed child yields ``{"mode", "combo", "error"}`` and the sweep goes on.
 ``run_combo`` measures one combo in the calling process.  ``train`` and
 ``peak`` records carry ``k1_launches``, K1's launches over the combo, and
 ``steps``, the optimizer steps it took (the change in ``state.step``).
+On a card the train step and the eval forward replay CUDA graphs from
+their second call (``steps.make_train_step``, ``make_eval_forward``):
+the counted step is the eager first call, the warmup holds the capture,
+and every record's ``graph_replays`` counts the replays (0 on the CPU).
 Every record carries ``secs``, where its time went: ``start`` (spawn,
 interpreter and imports, up to the child's first line of work; children
 only), ``cuda`` (the card's context), ``k1_lib`` (loading K1's library),
@@ -58,7 +62,7 @@ import torch
 from eld_tpu_torch.config import torch_device
 from eld_tpu_torch.noise.kernels import load_library, synthesize_kernel
 from eld_tpu_torch.tools import roofline
-from eld_tpu_torch.train.steps import make_eval_forward
+from eld_tpu_torch.train.steps import graph_replays, make_eval_forward
 
 _SMOKE = os.environ.get("ELD_BENCH_VARIANTS_SMOKE") == "1"
 PATCH = 64 if _SMOKE else 512
@@ -151,7 +155,8 @@ def _measure_train(arch: str, skip_mode: str, upsample: str, device: str, secs: 
 
     rec["patches_per_sec"] = round(min(timed(100), timed(200)), 2)
     _lap(secs, "timed", t)
-    rec.update(k1_launches=synthesize_kernel.launches - before, steps=state.step)
+    rec.update(k1_launches=synthesize_kernel.launches - before, steps=state.step,
+               graph_replays=graph_replays(step))
     return rec
 
 
@@ -189,7 +194,8 @@ def _measure_peak(impl: str, batch: int, device: str, secs: dict) -> dict:
     return {"noise_impl": noise_impl, "noise_impl_ref": impl, "batch": b,
             "patches_per_sec": round(med, 2), "mad": round(mad, 2),
             "compile_plus_warmup_s": round(secs["warmup"], 1),
-            "k1_launches": synthesize_kernel.launches - before, "steps": state.step}
+            "k1_launches": synthesize_kernel.launches - before, "steps": state.step,
+            "graph_replays": graph_replays(step)}
 
 
 def _measure_eval(skip_mode: str, upsample: str, device: str, secs: dict, chop: bool = True,
@@ -207,6 +213,7 @@ def _measure_eval(skip_mode: str, upsample: str, device: str, secs: dict, chop: 
         (batch, EVAL_H, EVAL_W, 4), dtype=onp.float32)).to(dev)
     t = _lap(secs, "build", t)
     float(fwd(x).sum())  # cuDNN plans + proof of a full execution
+    fwd(x)  # on a card: the capture of the CUDA graph the timed calls replay
     t = _lap(secs, "warmup", t)
     reps, k = max(1, 6 // batch), 5
     windows = []
@@ -219,7 +226,7 @@ def _measure_eval(skip_mode: str, upsample: str, device: str, secs: dict, chop: 
     _lap(secs, "timed", t)
     med, mad = _median_mad(windows)
     return {"fullframe_fps": round(med, 2), "fps_mad": round(mad, 2),
-            "chop": chop, "batch": batch}
+            "chop": chop, "batch": batch, "graph_replays": graph_replays(fwd)}
 
 
 def _refuse_gate():

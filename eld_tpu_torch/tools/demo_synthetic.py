@@ -8,7 +8,10 @@ quality signal of the SID protocol without the (download-only) SID raws.
 Each optimizer step synthesizes its noisy batch with the fused noise
 kernel on a CUDA card (``make_train_step``'s "auto" noise), and the U-Net
 runs under bf16 autocast over f32 parameters, as eld_tpu's demo computes
-its U-Net in bf16.
+its U-Net in bf16.  On a card the step (or the ``--scan`` call) and the
+held-out forward replay CUDA graphs from their second call; the first
+two are left out of the timed window, and the record's
+``graph_replays`` counts the replays of each.
 
 Also the arch A/B harness: --arch unet / unet_s2d under identical data,
 noise stream and step budget.
@@ -41,6 +44,7 @@ from eld_tpu_torch.ops.metrics import psnr
 from eld_tpu_torch.train.state import create_train_state, set_learning_rate
 from eld_tpu_torch.train.steps import (
     fold_in,
+    graph_replays,
     make_eval_forward,
     make_train_scan,
     make_train_step,
@@ -282,16 +286,20 @@ def main(argv=None):
         train_time = max(time.perf_counter() - t0, 1e-9)
         timed_patches = max(n_calls - warm, 0) * ns.scan * ns.batch
     elif ns.steps > 0:
-        m = run_step(0)
+        # untimed: the first step and, where steps remain to time, the second
+        # (on a card it captures the CUDA graph that the later steps replay)
+        warm = 2 if ns.steps > 2 else 1
+        for i in range(warm):
+            m = run_step(i)
         _sync(device)
         t0 = time.perf_counter()
-        for i in range(1, ns.steps):
+        for i in range(warm, ns.steps):
             m = run_step(i)
             if i % 100 == 0:
                 print(f"step {i}: loss {float(m['Pixel']):.4f}", file=sys.stderr)
         _sync(device)
         train_time = max(time.perf_counter() - t0, 1e-9)
-        timed_patches = max(ns.steps - 1, 0) * ns.batch
+        timed_patches = max(ns.steps - warm, 0) * ns.batch
     else:
         train_time = 1e-9
         timed_patches = 0
@@ -321,6 +329,9 @@ def main(argv=None):
     if ns.ratio_sweep:
         sweep = ratio_sweep(fwd, holdout, bank)
         result.update({f"{k}_{kk}": vv for k, v in sweep.items() for kk, vv in v.items()})
+    # on a card the train step (or pooled call) and the forward replay CUDA graphs
+    result["graph_replays"] = {"train": graph_replays(scan_fn if ns.scan > 0 else step),
+                               "eval": graph_replays(fwd)}
     print(json.dumps(result))
     return result
 

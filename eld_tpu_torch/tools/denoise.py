@@ -54,7 +54,7 @@ from eld_tpu_torch.export import load_denoiser
 from eld_tpu_torch.models import build_arch
 from eld_tpu_torch.ops.correct import illuminance_correct
 from eld_tpu_torch.train.checkpoints import load_params
-from eld_tpu_torch.train.steps import make_eval_forward
+from eld_tpu_torch.train.steps import graph_replays, make_eval_forward
 from eld_tpu_torch.utils.images import save_png
 
 RAW_EXTS = (".arw", ".cr2", ".nef", ".dng", ".tif", ".tiff", ".npz", ".rawpack")
@@ -277,7 +277,10 @@ def main(argv=None):
             print(f"[e] an output write failed as well: {e!r}", file=sys.stderr)
         raise
     writes.close()
-    print(json.dumps({"count": len(results), "out": ns.out}))
+    # what served the frames: an artifact (None), or the model's forward,
+    # whose CUDA graph replays are counted on a card
+    print(json.dumps({"count": len(results), "out": ns.out,
+                      "graph_replays": None if ns.artifact else graph_replays(fwd)}))
     return results
 
 

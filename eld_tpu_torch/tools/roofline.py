@@ -6,7 +6,10 @@ Adam) for a given arch/config, counts its FLOPs and bytes per step
 (``step_cost``, the counterpart of XLA's ``cost_analysis()``), prints the
 arithmetic intensity against the card's ridge point and the bandwidth
 floor, and, unless ``--no-run``, the measured step time with achieved
-TFLOP/s (MFU) and GB/s against peak.
+TFLOP/s (MFU) and GB/s against peak.  On a card the timed steps replay
+the step's CUDA graph (``steps.make_train_step``): the counted step is
+the eager first call and the warmup holds the capture, both outside the
+timed window; the record's ``graph`` and ``graph_replays`` say so.
 
 Usage:
   python -m eld_tpu_torch.tools.roofline --arch unet_s2d --batch 16 --bf16
@@ -41,7 +44,7 @@ from eld_tpu_torch.models import build_arch
 from eld_tpu_torch.noise.kernels import PARAM_STRIDE, synthesize_kernel
 from eld_tpu_torch.noise.params import load_camera_params
 from eld_tpu_torch.train.state import create_train_state
-from eld_tpu_torch.train.steps import make_train_step
+from eld_tpu_torch.train.steps import graph_replays, make_train_step
 
 H100_BF16_TFLOPS = 989.4  # dense bf16 tensor math, H100 SXM5 80GB
 H100_F32_TFLOPS = 66.9    # float32 outside the tensor cores, H100 SXM5 80GB
@@ -217,6 +220,8 @@ def main(argv=None):
         "bound": "hbm" if intensity < ridge else "compute",
         "bw_floor_ms": round(floor_ms, 2),
         "steps": state.step,  # optimizer steps taken so far: the counted one
+        # the timed steps replay the step's CUDA graph on a card
+        "graph": False, "graph_replays": 0,
     }
     print(f"[roofline] {ns.arch} b{ns.batch} {ns.patch}^2 "
           f"{'bf16' if ns.bf16 else 'f32'} ({rec['noise_impl']} noise): {flops/1e12:.3f} TF, "
@@ -242,6 +247,8 @@ def main(argv=None):
             "hbm_pct": round(nbytes / dt / (ns.peak_gbs * 1e9) * 100, 1),
         })
         rec["steps"] = state.step  # counted, warmup and timed
+        rec["graph_replays"] = graph_replays(step)
+        rec["graph"] = rec["graph_replays"] > 0
         print(f"[roofline] measured {rec['step_ms']} ms/step = "
               f"{rec['patches_per_sec']} patches/s | "
               f"{rec['achieved_tflops']} TFLOP/s ({rec['mfu_pct']}% of peak) | "

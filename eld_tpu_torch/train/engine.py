@@ -51,7 +51,14 @@ from eld_tpu_torch.parallel.multihost import allgather_objects, barrier, host_sh
 from eld_tpu_torch.parallel.spatial import make_spatial_forward
 from eld_tpu_torch.train import checkpoints as ckpt
 from eld_tpu_torch.train.state import create_train_state, get_learning_rate, set_learning_rate
-from eld_tpu_torch.train.steps import fold_in, make_eval_forward, make_train_scan, make_train_step
+from eld_tpu_torch.train.steps import (
+    SPATIAL,
+    fold_in,
+    make_eval_forward,
+    make_train_scan,
+    make_train_step,
+    say_eager,
+)
 from eld_tpu_torch.utils.images import save_png
 from eld_tpu_torch.utils.logging import (
     AverageMeters,
@@ -78,9 +85,10 @@ class Engine:
         # per-(dataset, metric) best values for best-checkpoint tracking;
         # persisted to best_val.json so a resumed run keeps the true best
         self.best_val: dict = {}
-        # make_train_scan's trainers by (K, batch); on a card each holds its
-        # CUDA graph, which drops itself when called on another pool or
-        # optimizer state, and which a load drops at once
+        # make_train_scan's trainers by (K, batch).  On a card the per-step
+        # trainer, each pooled trainer and the eval forward hold CUDA
+        # graphs, which drop themselves when called on another pool or
+        # optimizer state, and which a load (release_graphs) drops at once
         self._train_scans = {}
 
         # torch's default init is the reference's; seeded without touching
@@ -124,6 +132,7 @@ class Engine:
             )
         self._replicas = []
         if self.mesh.spatial > 1:
+            say_eager("eval forward", SPATIAL)
             self._fwd = self._spatial_forward(autocast)
         else:
             self._fwd = make_eval_forward(model, chop=cfg.chop, autocast_dtype=autocast)
@@ -209,7 +218,9 @@ class Engine:
 
     # ---- training ----
     def train(self, loader):
-        """One epoch over ``loader`` yielding dict batches of NumPy arrays."""
+        """One epoch over ``loader`` yielding dict batches of NumPy arrays.
+        On a card each batch shape runs as one CUDA graph from its second
+        step (``steps.make_train_step``); metrics are read one step late."""
         cfg = self.cfg
         print(f"\nEpoch: {self.epoch} (lr {get_learning_rate(self.state):.2e})")
         meters = AverageMeters()
@@ -518,6 +529,17 @@ class Engine:
             if self.host0:
                 progress(i, n)
 
+    def release_graphs(self):
+        """Drop every CUDA graph the Engine holds (the per-step trainer's,
+        the pooled trainers', the eval forward's) and with them their
+        memory pools, for ``torch.cuda.empty_cache`` to return to the
+        card; each path's next call runs eagerly, then captures anew."""
+        self._train_scans.clear()
+        if self._train_step is not None:
+            self._train_step.graphs.clear()
+        if self.mesh.spatial == 1:
+            self._fwd.graphs.clear()
+
     # ---- checkpoints ----
     def save(self, label: Optional[str] = None, wait: bool = False) -> str:
         """Write the reference's .pt layout {netG, opt_g, epoch, iterations}
@@ -545,7 +567,7 @@ class Engine:
                 f"no checkpoint found in {self.cfg.save_dir} (epoch={resume_epoch})")
         ckpt.load_checkpoint(path, self.state)
         # the optimizer's state tensors are new: no captured graph holds them
-        self._train_scans.clear()
+        self.release_graphs()
         self._load_best_val()
         print(f"Resume from epoch {self.epoch}, iteration {self.iterations}")
         return path

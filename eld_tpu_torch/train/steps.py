@@ -9,10 +9,16 @@ takes paired {"input", "target"} batches (the ``train_real`` path).
 
 ``make_train_scan`` is the pooled form: K steps per call over a patch
 pool that lives on the device, each step picking and augmenting its own
-batch there.  On a card it is one CUDA graph per call, as eld_tpu's is
-one ``lax.scan`` program: captured once, then replayed with new seeds.
-``make_eval_forward`` is the inference forward with the edge-pad to the
-arch's alignment, or the 4-tile chop.
+batch there.  ``make_eval_forward`` is the inference forward with the
+edge-pad to the arch's alignment, or the 4-tile chop.
+
+On a card all three run as CUDA graphs (``_GraphCall``), as eld_tpu
+``jax.jit``s each one into one XLA program: the step and the forward one
+graph per input shape, the pooled call one per (K, batch).  The first
+call of a shape runs eagerly, the second captures and replays, every
+later one replays.  Data parallelism keeps the train paths eager (DDP's
+hooks and NCCL are not captured), and ``capture=False`` keeps any path
+eager on a card; a path that stays eager says so once.
 
 Randomness is a pure function of the step seed, which the Engine derives
 from (cfg.seed, iteration) with ``fold_in``, so a resumed run sees the
@@ -150,9 +156,10 @@ def _make_local_step(loss, noise_model, bank, k_mode, noise_impl, autocast_dtype
     """``step(state, batch, rng, noise_seed) -> loss``: one optimizer step on
     this rank's rows, drawing its noise parameters from ``rng`` (a
     ``StepRandom`` seeded from the step seed) and its noise from
-    ``noise_seed`` (``rank_noise_seed`` of it: an int, or a one-element
-    int64 tensor on the card); returns the rank's own loss (detached, on
-    the device)."""
+    ``noise_seed`` (``rank_noise_seed`` of it: an int, or in a CUDA graph a
+    one-element int64 tensor on the card for K1 and a generator seeded
+    with it for the plain noise); returns the rank's own loss (detached,
+    on the device)."""
     synthetic = noise_model is not None
     if synthetic and bank is None:
         raise ValueError("synthetic training needs a CameraParamsBank")
@@ -167,9 +174,11 @@ def _make_local_step(loss, noise_model, bank, k_mode, noise_impl, autocast_dtype
         if world > 1:
             nparams = take_rows(nparams, rank_rows(rank, world, n))
         if noise_impl == "plain":
-            # the parameters are drawn: their generator is reseeded for the noise
-            return synthesize(rng.params.manual_seed(int(noise_seed)), clean, nparams,
-                              model=noise_model, clip=True)
+            # a graph's plain noise has a generator of its own; otherwise the
+            # parameters are drawn, and their generator is reseeded for the noise
+            gen = (noise_seed if isinstance(noise_seed, torch.Generator)
+                   else rng.params.manual_seed(int(noise_seed)))
+            return synthesize(gen, clean, nparams, model=noise_model, clip=True)
         return synthesize_kernel(noise_seed, clean, nparams, model=noise_model, clip=True)
 
     def step(state: TrainState, batch, rng: StepRandom, noise_seed) -> torch.Tensor:
@@ -205,6 +214,7 @@ def make_train_step(
     autocast_dtype: Optional[torch.dtype] = None,
     forward: Optional[nn.Module] = None,
     shard: tuple = (0, 1),
+    capture: bool = True,
 ):
     """Build ``step(state, batch, seed) -> metrics``; updates ``state`` in place.
 
@@ -220,15 +230,41 @@ def make_train_step(
     batch of N * world, ``forward`` is the DistributedDataParallel wrapper
     of ``state.model`` the step calls (default: ``state.model``), and
     "Pixel" is the mean over the ranks (see the module docstring).
+
+    On a card the step is one CUDA graph per batch signature (the keys,
+    shapes and dtypes; ``_GraphCall``), as eld_tpu's is one ``jax.jit``
+    program per shape: the first step of a signature runs eagerly, the
+    second captures and replays, every later one copies its batch into
+    the graph's input buffers and replays.  The same seed gives the same
+    noise parameters and noise as the eager step, and "Pixel" is a copy
+    of the graph's loss.  It stays eager for CPU tensors, under data
+    parallelism (a ``forward`` wrapper or ``shard[1] > 1``; said once)
+    and with ``capture=False`` (the A/B against the graph).  The returned
+    function's ``graphs`` holds the graphs by signature.
     """
     step = _make_local_step(loss, noise_model, bank, k_mode, noise_impl, autocast_dtype,
                             forward, shard)
+    eager_reason = DATA_PARALLEL if forward is not None or shard[1] > 1 else None
+    graphs: Dict[tuple, _GraphCall] = {}
+
+    def run(state: TrainState, batch, draws):
+        ((rng, noise_seed),) = draws
+        return (step(state, batch, rng, noise_seed),)
 
     def reported(state: TrainState, batch, seed: int):
-        rng = step_random(next(iter(batch.values())).device, seed)
-        loss = step(state, batch, rng, rank_noise_seed(seed, *shard))
+        dev = next(iter(batch.values())).device
+        if _captures(dev, capture, eager_reason, "train step"):
+            key = tuple((k, tuple(v.shape), v.dtype) for k, v in batch.items())
+            call = graphs.get(key)
+            if call is None:
+                call = graphs[key] = _GraphCall(run, dev, bind=_state_binding, slots=1, steps=1,
+                                                static=True, plain_noise=noise_impl == "plain")
+            (loss,) = call(state, batch, [seed])
+            return {"Pixel": loss}
+        loss = step(state, batch, step_random(dev, seed), rank_noise_seed(seed, *shard))
         return {"Pixel": global_mean(loss, shard[1])}
 
+    reported.graphs = graphs
     return reported
 
 
@@ -290,21 +326,44 @@ def pick_batch(pool: Dict[str, torch.Tensor], batch: int, seed: Optional[int],
     return dict(zip(out, augment_batch(list(out.values()), *masks)))
 
 
-_said_eager = False
+# why a path on the card stays eager (``say_eager``)
+DATA_PARALLEL = "under data parallelism (DDP's hooks and NCCL are not captured in a CUDA graph)"
+SPATIAL = ("under --mesh_spatial (the halo-sharded forward crosses cards; it is not captured "
+           "in a CUDA graph)")
+_SAID: set = set()
 
 
-def _log_eager_once():
-    global _said_eager
-    if not _said_eager:
-        _said_eager = True
-        print("[i] pooled trainer: eager launches on the card under data parallelism "
-              "(DDP's hooks and NCCL are not captured in a CUDA graph)", file=sys.stderr)
+def say_eager(what: str, why: str):
+    """Say on stderr, once per process, that ``what`` issues every launch
+    from Python on the card, and ``why``."""
+    msg = f"[i] {what}: eager launches on the card {why}"
+    if msg not in _SAID:
+        _SAID.add(msg)
+        print(msg, file=sys.stderr)
+
+
+def _captures(device: torch.device, capture: bool, eager_reason: Optional[str],
+              what: str) -> bool:
+    """Whether a call of ``what`` on ``device`` runs as a CUDA graph: on a
+    card with ``capture`` set and no ``eager_reason``, which is said once."""
+    if device.type != "cuda" or not capture:
+        return False
+    if eager_reason is not None:
+        say_eager(what, eager_reason)
+        return False
+    return True
+
+
+def graph_replays(fn) -> int:
+    """The CUDA graph replays of a train step, pooled trainer or eval
+    forward built here, over all its graphs."""
+    return sum(call.replays for call in fn.graphs.values())
 
 
 def _binding(state: TrainState, pool: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
-    """The tensors a captured call reads and writes in place: the pool,
-    the parameters, the optimizer's state and rate tensors.  A graph is
-    valid while these are the same tensors on the same storage."""
+    """The tensors a captured train call reads and writes in place: the
+    pool, the parameters, the optimizer's state and rate tensors.  A graph
+    is valid while these are the same tensors on the same storage."""
     out = list(pool.values()) + list(state.model.parameters())
     for group in state.optimizer.param_groups:
         if isinstance(group["lr"], torch.Tensor):
@@ -315,61 +374,86 @@ def _binding(state: TrainState, pool: Dict[str, torch.Tensor]) -> List[torch.Ten
     return out
 
 
+def _state_binding(state: TrainState, inputs) -> List[torch.Tensor]:
+    """A step's binding: its batch is copied into the graph's buffers, so
+    only the parameters and the optimizer's tensors are bound."""
+    return _binding(state, {})
+
+
 def _same_binding(a: List[torch.Tensor], b: List[torch.Tensor]) -> bool:
     return len(a) == len(b) and all(x is y and x.data_ptr() == y.data_ptr()
                                     for x, y in zip(a, b))
 
 
-class _CapturedCall:
-    """K pooled steps on one card as one CUDA graph (PyTorch's whole-
-    network capture): the picks, augmentation, noise parameters, K1, the
-    forward, backward and Adam of every step, replayed by one launch.
+class _GraphCall:
+    """One call on one card as one CUDA graph (PyTorch's whole-network
+    capture), replayed by one launch: the mechanism of the pooled call,
+    the per-step train step and the eval forward.
 
-    The graph's randomness is re-drawn at every replay: step j draws its
-    picks, masks and parameters from the generators of slot j, registered
-    with the graph and reseeded on the host before the replay, and K1
-    reads its seed from element j of a device buffer, filled by one copy
-    from pinned memory per call.  So step j of a replay draws exactly
-    what the eager loop draws for ``seeds[j]``.
+    ``run(state, inputs, draws)`` does the call's work and returns a tuple
+    of tensors; ``draws`` holds one (StepRandom, noise seed) per step of
+    the call (``slots`` of them; none for the forward).  ``bind(state,
+    inputs)`` lists the tensors the graph reads and writes in place
+    (``_binding``): a graph is valid while they are the same tensors on
+    the same storage, and a call that finds them replaced drops it.
+    ``static``: the inputs are copied into buffers of the call's own
+    before each replay (a step's batch, a forward's frame); otherwise the
+    graph reads the caller's tensors (the pool, part of the binding).
 
-    The first call for a binding (``_binding``) runs eagerly on a side
-    stream, a real call with its own seeds; the next captures the K steps
-    (executing nothing) and replays them, and every later call replays.
-    A call whose binding changed (another pool, a loaded optimizer state)
-    starts over with an eager call.  A replay runs no Python, so the call
-    advances ``state.step`` by K and ``synthesize_kernel.launches`` by the
-    launches the graph holds.  A call returns (mean loss, the K losses);
-    after a replay they are copies of the graph's outputs, which the next
-    replay overwrites.
+    The graph's randomness is re-drawn at every replay: step j draws from
+    the generators of slot j, registered with the graph and reseeded on
+    the host from ``seeds[j]`` before the replay, and K1 reads its seed
+    ``rank_noise_seed(seeds[j])`` from element j of a device buffer,
+    filled by one copy from pinned memory per call (the plain noise
+    instead draws from a registered generator seeded with it).  So step j
+    of a replay draws exactly what the eager path draws for ``seeds[j]``.
+
+    The first call for a binding runs eagerly on a side stream, a real
+    call with its own seeds; the next captures (executing nothing) and
+    replays, and every later call replays.  A replay runs no Python, so
+    the call advances ``state.step`` by ``steps`` and
+    ``synthesize_kernel.launches`` by the launches the graph holds.  A call
+    returns copies of the graph's outputs, which the next replay
+    overwrites.  ``pool``: a memory pool shared with other graphs that
+    replay one at a time on one stream (None: the graph's own).  A capture
+    or replay that fails raises.
     """
 
-    def __init__(self, run, k: int, device: torch.device):
-        self.run, self.k, self.device = run, k, device
-        self.slots = [StepRandom(device) for _ in range(k)]
+    def __init__(self, run, device: torch.device, bind, slots: int = 0, steps: int = 0,
+                 static: bool = False, plain_noise: bool = False, pool=None):
+        self.run, self.device, self.bind = run, device, bind
+        self.steps, self.static, self.pool = steps, static, pool
+        self.slots = [StepRandom(device) for _ in range(slots)]
+        self.noise = [torch.Generator(device=device) for _ in range(slots)] if plain_noise else []
         card = device.type == "cuda"
-        self.seeds_host = torch.empty(k, dtype=torch.int64, pin_memory=card)
-        self.seeds = torch.empty(k, dtype=torch.int64, device=device)
+        self.seeds_host = torch.empty(slots, dtype=torch.int64, pin_memory=card and slots > 0)
+        self.seeds = torch.empty(slots, dtype=torch.int64, device=device)
         # recorded after each copy from the pinned buffer (None off the card,
         # where the copy is synchronous)
-        self.copied = torch.cuda.Event() if card else None
+        self.copied = torch.cuda.Event() if card and slots else None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.binding: Optional[List[torch.Tensor]] = None
-        self.out: Tuple[torch.Tensor, ...] = ()  # the graph's (mean, losses)
+        self.inputs: Dict[str, torch.Tensor] = {}  # the static input buffers
+        self.out: Tuple[torch.Tensor, ...] = ()  # the graph's outputs
         self.launches = 0
         self.replays = 0
 
     def reset(self):
-        """Drop the graph (and its memory pool); the next call runs eagerly."""
-        self.graph, self.binding, self.out = None, None, ()
+        """Drop the graph (and its memory); the next call runs eagerly."""
+        self.graph, self.binding, self.inputs, self.out = None, None, {}, ()
 
     def _draws(self):
-        return [(rng, self.seeds[j:j + 1]) for j, rng in enumerate(self.slots)]
+        seeds = self.noise or [self.seeds[j:j + 1] for j in range(len(self.slots))]
+        return list(zip(self.slots, seeds))
 
     def _load_seeds(self, seeds: Sequence[int]):
         """Reseed slot j from ``seeds[j]`` and copy the noise seeds
-        ``rank_noise_seed(seeds[j])`` into the graph's seed buffer."""
+        ``rank_noise_seed(seeds[j])`` into the graph's seed buffer (or
+        seed the plain noise's generators with them)."""
         for rng, seed in zip(self.slots, seeds):
             rng.reseed(seed)
+        for gen, seed in zip(self.noise, seeds):
+            gen.manual_seed(rank_noise_seed(seed))
         if self.copied is not None:
             self.copied.synchronize()  # the last call's copy has read the pinned buffer
         self.seeds_host.numpy()[:] = [seed_int64(rank_noise_seed(s)) for s in seeds]
@@ -377,48 +461,64 @@ class _CapturedCall:
         if self.copied is not None:
             self.copied.record()
 
-    def __call__(self, state: TrainState, pool: Dict[str, torch.Tensor], seeds: Sequence[int]):
-        if self.binding is not None and not _same_binding(self.binding, _binding(state, pool)):
+    def __call__(self, state: Optional[TrainState], inputs: Dict[str, torch.Tensor],
+                 seeds: Sequence[int] = ()):
+        if self.binding is not None and not _same_binding(self.binding,
+                                                          self.bind(state, inputs)):
             self.reset()
-        self._load_seeds(seeds)
+        if self.slots:
+            self._load_seeds(seeds)
         if self.binding is None:
-            return self._eager(state, pool)
+            return self._eager(state, inputs)
         if self.graph is None:
-            self._capture(state, pool)
+            self._capture(state, inputs)
+        for key, buf in self.inputs.items():
+            buf.copy_(inputs[key])
         self.graph.replay()
         self.replays += 1
-        state.step += self.k
+        if state is not None:
+            state.step += self.steps
         synthesize_kernel.launches += self.launches
-        return self.out[0].clone(), self.out[1].clone()
+        return tuple(t.clone() for t in self.out)
 
-    def _eager(self, state, pool):
+    def _eager(self, state, inputs):
         main = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(main)
         with torch.cuda.stream(side):
-            losses = self.run(state, pool, self._draws())
-            out = (losses.mean(), losses)
+            out = self.run(state, inputs, self._draws())
         main.wait_stream(side)
         for t in out:
             t.record_stream(main)  # read on the main stream after this call
-        self.binding = _binding(state, pool)
+        self.binding = self.bind(state, inputs)  # after the call: Adam's state exists
         return out
 
-    def _capture(self, state, pool):
+    def _capture(self, state, inputs):
+        if self.static:
+            # the graph's own input buffers, which each replay refills
+            self.inputs = {key: v.clone() for key, v in inputs.items()}
+            inputs = self.inputs
         graph = torch.cuda.CUDAGraph()
         for rng in self.slots:
             for gen in rng.generators():
                 graph.register_generator_state(gen)
-        step, launches = state.step, synthesize_kernel.launches
+        for gen in self.noise:
+            graph.register_generator_state(gen)
+        step, launches = (state.step if state is not None else 0), synthesize_kernel.launches
         try:
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                losses = self.run(state, pool, self._draws())
-                out = (losses.mean(), losses)
+            with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
+                out = self.run(state, inputs, self._draws())
             self.launches = synthesize_kernel.launches - launches
         finally:
-            # the capture ran the steps' Python, not their device work
-            state.step, synthesize_kernel.launches = step, launches
+            # the capture ran the call's Python, not its device work
+            if state is not None:
+                state.step = step
+            synthesize_kernel.launches = launches
         self.graph, self.out = graph, out
+
+
+def _mean_and(losses: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    return losses.mean(), losses
 
 
 def make_train_scan(
@@ -451,10 +551,12 @@ def make_train_scan(
     keeps the rank's rows of it, and the K losses are averaged over the
     ranks in one all-reduce per call.
 
-    On a card, the K steps of a call are one CUDA graph (``_CapturedCall``):
-    the first call runs eagerly, the second captures and replays, every
-    later one replays, so a call costs the host one launch and its seeds,
-    as eld_tpu's ``lax.scan`` does.  The same seeds give the same picks,
+    On a card, the K steps of a call are one CUDA graph (``_GraphCall``:
+    the picks, augmentation, noise parameters, K1, the forward, backward
+    and Adam of every step, replayed by one launch, the pool read in place
+    and another pool dropping the graph): the first call runs eagerly, the
+    second captures and replays, every later one replays, so a call costs
+    the host one launch and its seeds, as eld_tpu's ``lax.scan`` does.  The same seeds give the same picks,
     masks, parameters and noise as the eager loop.  The eager loop runs
     for CPU tensors, and under data parallelism (a ``forward`` wrapper or
     ``shard[1] > 1``, i.e. ``--multihost``), since DDP's gradient hooks
@@ -465,8 +567,8 @@ def make_train_scan(
     step = _make_local_step(loss, noise_model, bank, k_mode, "auto", autocast_dtype, forward,
                             shard)
     rows = rank_rows(*shard, batch) if shard[1] > 1 else None
-    data_parallel = forward is not None or shard[1] > 1
-    captured: Dict[torch.device, _CapturedCall] = {}
+    eager_reason = DATA_PARALLEL if forward is not None or shard[1] > 1 else None
+    graphs: Dict[torch.device, _GraphCall] = {}
 
     def run(state: TrainState, pool, draws: Iterable[Tuple[StepRandom, object]]):
         """The K steps, each drawing from its (StepRandom, noise seed)."""
@@ -479,20 +581,20 @@ def make_train_scan(
         if len(seeds) != steps_per_call:
             raise ValueError(f"{len(seeds)} seeds for {steps_per_call} steps per call")
         dev = next(iter(pool.values())).device
-        if dev.type == "cuda" and capture and not data_parallel:
-            call = captured.get(dev)
+        if _captures(dev, capture, eager_reason, "pooled trainer"):
+            call = graphs.get(dev)
             if call is None:
-                call = captured[dev] = _CapturedCall(run, steps_per_call, dev)
+                call = graphs[dev] = _GraphCall(
+                    lambda st, pl, draws: _mean_and(run(st, pl, draws)), dev, bind=_binding,
+                    slots=steps_per_call, steps=steps_per_call)
             mean, multi.losses = call(state, pool, seeds)
             return {"Pixel": mean, "PixelLast": multi.losses[-1]}
-        if dev.type == "cuda" and capture:
-            _log_eager_once()
         # the process's StepRandom, reseeded from each step's seed just before its step
         multi.losses = run(state, pool, ((step_random(dev, s), rank_noise_seed(s, *shard))
                                          for s in seeds))
         return {"Pixel": multi.losses.mean(), "PixelLast": multi.losses[-1]}
 
-    multi.captured = captured  # the card's captured calls, by device
+    multi.graphs = graphs  # the card's graphs, by device
     return multi
 
 
@@ -507,22 +609,34 @@ def edge_pad(x: torch.Tensor, hp: int, wp: int) -> torch.Tensor:
 
 
 def make_eval_forward(model: nn.Module, chop: bool = False,
-                      autocast_dtype: Optional[torch.dtype] = None):
+                      autocast_dtype: Optional[torch.dtype] = None, capture: bool = True):
     """Inference ``fwd(x) -> pred`` on NHWC batches, without autograd.
 
     Without ``chop`` the frame is edge-padded on H and W up to the arch's
     alignment and the output cropped back, so full frames that are not a
     multiple of it (SID's 1424x2128 is 16- but not 32-aligned) run.  With
     ``chop`` the 4-tile forward runs, its tiles on the same alignment.
-    ``autocast_dtype`` runs the model under autocast (``--bf16``)."""
+    ``autocast_dtype`` runs the model under autocast (``--bf16``).
+
+    On a card the forward is one CUDA graph per input (shape, dtype)
+    (``_GraphCall``), as eld_tpu's is one ``jax.jit`` program per shape:
+    the first call of a shape runs eagerly (and sets up cuDNN's plans),
+    the second captures and replays, every later one copies its input
+    into the graph's buffer and replays.  The output is a copy, never the
+    graph's own.  All graphs of one forward share one memory pool (they
+    replay one at a time on one stream).  A graph is bound to the model's
+    parameters and buffers: in-place updates (Adam's, a checkpoint load)
+    keep it, replaced tensors drop it.  ``capture=False`` stays eager; the
+    returned function's ``graphs`` holds the graphs by (shape, dtype)."""
     base = model.alignment()
+    graphs: Dict[tuple, _GraphCall] = {}
+    pool = []  # the forward's memory pool, made at its first graph
 
     def apply(t):
         with _autocast(t.device, autocast_dtype):
             return model(t)
 
-    @torch.no_grad()
-    def fwd(x: torch.Tensor) -> torch.Tensor:
+    def forward(x: torch.Tensor) -> torch.Tensor:
         if chop:
             return forward_chop(apply, x, base=base)
         h, w = x.shape[1], x.shape[2]
@@ -531,4 +645,23 @@ def make_eval_forward(model: nn.Module, chop: bool = False,
             return apply(x)
         return apply(edge_pad(x, hp, wp))[:, :h, :w]
 
+    def run(state, inputs, draws):
+        return (forward(inputs["x"]),)
+
+    def bind(state, inputs):
+        return list(model.parameters()) + list(model.buffers())
+
+    @torch.no_grad()
+    def fwd(x: torch.Tensor) -> torch.Tensor:
+        if not _captures(x.device, capture, None, "eval forward"):
+            return forward(x)
+        key = (tuple(x.shape), x.dtype)
+        call = graphs.get(key)
+        if call is None:
+            if not pool:
+                pool.append(torch.cuda.graph_pool_handle())
+            call = graphs[key] = _GraphCall(run, x.device, bind=bind, static=True, pool=pool[0])
+        return call(None, {"x": x})[0]
+
+    fwd.graphs = graphs
     return fwd

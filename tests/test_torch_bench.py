@@ -216,7 +216,9 @@ def test_child_records_have_eld_tpus_keys(smoke_sizes, monkeypatch, capsys, comb
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == rec
     mode = combo[0]
     extra = {"k1_launches", "steps"} | ({"noise_impl_ref"} if mode == "peak" else set())
-    assert set(rec) == JAX_KEYS[mode] | (extra if mode != "eval" else set()) | {"secs"}
+    assert set(rec) == (JAX_KEYS[mode] | (extra if mode != "eval" else set())
+                        | {"secs", "graph_replays"})
+    assert rec["graph_replays"] == 0  # CUDA graphs only on a card
     assert set(rec["secs"]) == {"cuda", "k1_lib", "build", "warmup", "timed"} | (
         {"cost"} if mode == "train" else set())
     assert all(v >= 0 for v in rec["secs"].values())
@@ -336,7 +338,9 @@ def test_roofline_record_has_eld_tpus_keys(capsys):
     rec = roofline.main(["--arch", "unet_s2d", "--base_width", "8", "--f32", "--no-run", *SMALL])
     assert json.loads(capsys.readouterr().out) == rec
     assert set(rec) == JAX_ROOFLINE_KEYS | {"noise_impl", "platform", "power_limit_w",
-                                            "k1_bytes_per_step", "steps"}
+                                            "k1_bytes_per_step", "steps", "graph",
+                                            "graph_replays"}
+    assert rec["graph"] is False and rec["graph_replays"] == 0
     assert rec["steps"] == 1  # the counted step
     assert rec["bound"] in ("hbm", "compute") and rec["noise_impl"] == "plain"
     assert rec["flops_per_step"] == conv_flops("unet_s2d", 2, 64, 64, 8)
@@ -351,5 +355,6 @@ def test_roofline_run_adds_eld_tpus_run_keys():
     assert JAX_RUN_KEYS <= set(rec) and JAX_ROOFLINE_KEYS <= set(rec)
     assert rec["step_ms"] > 0 and rec["patches_per_sec"] > 0 and rec["bf16"] is True
     assert rec["steps"] == 1 + 3 + 2  # counted, warmup, timed
+    assert rec["graph"] is False and rec["graph_replays"] == 0  # the CPU steps eagerly
     assert rec["ridge_flop_per_byte"] == round(roofline.H100_BF16_TFLOPS
                                                / roofline.H100_HBM_GBS * 1e3, 1)

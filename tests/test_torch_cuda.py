@@ -1,5 +1,6 @@
 """The port's noise kernel (and its device-seed entry), pooled trainer
-(and its CUDA graph against the eager loop), eval forward, ISP, serving
+and per-step train step (and their CUDA graphs against the eager
+paths), eval forward (and its CUDA graph), ISP, serving
 artifacts, spatial forward, data-parallel picks, asynchronous saves, the
 synthetic demo, apply_noise, the demosaic and the benchmark tools on the
 card (marked ``cuda``; skipped where there is none).
@@ -29,8 +30,15 @@ from eld_tpu_torch.parallel.mesh import rank_rows
 from eld_tpu_torch.parallel.spatial import make_spatial_forward
 from eld_tpu_torch.train import checkpoints as ckpt
 from eld_tpu_torch.train.engine import Engine
-from eld_tpu_torch.train.state import set_learning_rate
-from eld_tpu_torch.train.steps import fold_in, make_eval_forward, make_train_scan, pick_batch
+from eld_tpu_torch.train.state import create_train_state, set_learning_rate
+from eld_tpu_torch.train.steps import (
+    fold_in,
+    graph_replays,
+    make_eval_forward,
+    make_train_scan,
+    make_train_step,
+    pick_batch,
+)
 
 
 @pytest.fixture
@@ -384,7 +392,7 @@ def test_captured_pooled_calls_equal_the_eager_loop(cuda_device, tmp_path, arch)
                 losses.append(fn.losses.cpu())
                 still = all(torch.equal(a, b) for a, b in zip(params, eng.model.parameters()))
                 assert still == (lr == 0.0), (arm, k, lr)
-            replays = sum(c.replays for k in (3, 2) for c in eng._scan_fn(k).captured.values())
+            replays = sum(c.replays for k in (3, 2) for c in eng._scan_fn(k).graphs.values())
             runs[arm] = (losses, {k: v.cpu() for k, v in eng.model.state_dict().items()},
                          eng.iterations, synthesize_kernel.launches - before, replays)
     finally:
@@ -396,3 +404,92 @@ def test_captured_pooled_calls_equal_the_eager_loop(cuda_device, tmp_path, arch)
         assert torch.equal(a, b)
     for name, v in pe.items():
         assert torch.equal(v, pg[name]), name
+
+
+# the per-step calls: the rate set just before each step (None: unchanged);
+# step 0 runs eagerly, step 1 captures, the rest replay, one at rate 0
+_STEP_RATES = (None, None, None, 0.0, 1e-4, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,noise,impl,remat", [
+    ("unet", "eld", "auto", False), ("unet_s2d", "eld", "auto", False),
+    ("unet", None, "auto", False), ("unet_s2d", None, "auto", False),
+    ("unet_s2d", "eld", "plain", False), ("unet", "eld", "auto", True)],
+    ids=["unet-K1", "unet_s2d-K1", "unet-paired", "unet_s2d-paired", "unet_s2d-plain",
+         "unet-K1-remat"])
+def test_captured_train_steps_equal_the_eager_step(cuda_device, arch, noise, impl, remat):
+    """make_train_step on the card replays one CUDA graph per batch shape
+    from its second step; against make_train_step(capture=False) from the
+    same weights, batches and seeds, every loss and the parameters are
+    equal bit for bit (cuDNN held to deterministic algorithms), across a
+    rate change (at rate 0 a replay moves nothing), and so are
+    state.step and K1's launches (one a synthetic step, counted by the
+    runner); --remat captures too."""
+    rng = onp.random.default_rng(5)
+    keys = ("clean",) if noise else ("input", "target")
+    batches = [{k: torch.from_numpy(rng.integers(0, 65535, (2, 64, 64, 4), dtype=onp.uint16))
+                .to(cuda_device) for k in keys} for _ in range(len(_STEP_RATES))]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for capture in (False, True):
+            torch.manual_seed(0)
+            model = build_arch(arch, 4, 4, base_width=8, skip_mode="split", remat=remat)
+            model = model.to(cuda_device).to(memory_format=torch.channels_last)
+            state = create_train_state(model)
+            step = make_train_step(model, noise_model=noise,
+                                   bank=load_camera_params(include=4, device=cuda_device),
+                                   noise_impl=impl, autocast_dtype=torch.bfloat16,
+                                   capture=capture)
+            before = synthesize_kernel.launches
+            losses = []
+            for i, (batch, lr) in enumerate(zip(batches, _STEP_RATES)):
+                if lr is not None:
+                    set_learning_rate(state, lr)
+                params = [p.detach().clone() for p in model.parameters()]
+                losses.append(float(step(state, batch, fold_in(7, i))["Pixel"]))
+                still = all(torch.equal(a, b) for a, b in zip(params, model.parameters()))
+                assert still == (lr == 0.0), (capture, i, lr)
+            runs[capture] = (losses, [p.detach().cpu() for p in model.parameters()],
+                             state.step, synthesize_kernel.launches - before,
+                             graph_replays(step))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (le, pe, se, ne, re_), (lg, pg, sg, ng, rg) = runs[False], runs[True]
+    n = len(_STEP_RATES)
+    assert (re_, rg) == (0, n - 1) and se == sg == n
+    assert ne == ng == (n if noise and impl == "auto" else 0)
+    assert le == lg
+    assert all(torch.equal(a, b) for a, b in zip(pe, pg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("arch,chop,shape", [
+    ("unet_s2d", False, (1, 72, 88, 4)), ("unet", False, (2, 64, 64, 4)),
+    ("unet", True, (1, 72, 88, 4))], ids=["pad", "aligned", "chop"])
+def test_captured_eval_forward_equals_the_eager_forward(cuda_device, arch, chop, shape, dtype):
+    """make_eval_forward on the card replays one CUDA graph per (shape,
+    dtype) from its second call, bit for bit the eager forward's output
+    under cudnn.deterministic; an output is a copy, which later calls
+    leave as it was."""
+    torch.manual_seed(0)
+    model = build_arch(arch, 4, 4, base_width=8, skip_mode="split").to(cuda_device)
+    model = model.to(memory_format=torch.channels_last)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    xs = [torch.rand(shape, generator=gen, device=cuda_device) for _ in range(4)]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        fwd = make_eval_forward(model, chop=chop, autocast_dtype=dtype)
+        eager = make_eval_forward(model, chop=chop, autocast_dtype=dtype, capture=False)
+        outs = [fwd(x) for x in xs]
+        kept = [o.clone() for o in outs]
+        want = [eager(x) for x in xs]
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert graph_replays(fwd) == 3 and eager.graphs == {}
+    for o, k, w in zip(outs, kept, want):
+        assert o.shape == shape and torch.equal(o, w) and torch.equal(o, k)

@@ -201,7 +201,8 @@ def test_tiny_run_emits_jax_keys(jax_record, extra):
     want = set(jax_record)
     if "--ratio_sweep" not in extra:
         want = {k for k in want if not k.startswith(("x100", "x200", "x300"))}
-    assert set(rec) == want
+    assert set(rec) == want | {"graph_replays"}
+    assert rec["graph_replays"] == {"train": 0, "eval": 0}  # CUDA graphs only on a card
     assert rec["steps"] == 4 and rec["scan"] == (2 if "--scan" in extra else 0)
     assert onp.isfinite(rec["final_loss"]) and rec["train_patches_per_sec"] > 0
     # the same held-out scenes under other noise bits

@@ -41,7 +41,7 @@ from eld_tpu_torch.train.state import (
 from eld_tpu_torch.train.steps import (
     StepRandom,
     _binding,
-    _CapturedCall,
+    _GraphCall,
     fold_in,
     make_train_scan,
     pick_batch,
@@ -117,6 +117,12 @@ def _scan_state():
     return create_train_state(model, lr=LR)
 
 
+def _pooled_call(k):
+    """A pooled call's runner of K steps on the CPU, as make_train_scan
+    builds it on a card (its work never runs here)."""
+    return _GraphCall(None, torch.device("cpu"), bind=_binding, slots=k, steps=k)
+
+
 def test_seed_buffer_and_slots_hold_the_eager_loops_seeds():
     """For a call of K at Engine step s, slot j's generators are seeded as
     the eager loop's (fold_in(seeds[j], 0 / 2 / 3)) and draw the same
@@ -124,7 +130,7 @@ def test_seed_buffer_and_slots_hold_the_eager_loops_seeds():
     rank_noise_seed(fold_in(cfg.seed, s + j)), as int64 bits."""
     k, step = 4, 123
     seeds = [fold_in(2018, step + j) for j in range(k)]
-    call = _CapturedCall(run=None, k=k, device=torch.device("cpu"))
+    call = _pooled_call(k)
     call._load_seeds(seeds)
     want = [seed_int64(rank_noise_seed(s)) for s in seeds]
     assert call.seeds.tolist() == want
@@ -148,7 +154,7 @@ def test_a_replay_advances_step_and_launches_by_k_and_returns_copies():
     k = 3
     state = _scan_state()
     pool = {"clean": torch.from_numpy(_u16((4, 16, 16, 4), 0))}
-    call = _CapturedCall(run=None, k=k, device=torch.device("cpu"))
+    call = _pooled_call(k)
     call.graph, call.launches = _FakeGraph(), k
     call.binding = _binding(state, pool)
     call.out = (torch.tensor(0.5), torch.tensor([0.75, 0.5, 0.25]))
@@ -172,7 +178,7 @@ def test_a_new_pool_or_optimizer_state_drops_the_graph():
     state = _scan_state()
     pool = {"clean": torch.from_numpy(_u16((4, 16, 16, 4), 0))}
     eager = []
-    call = _CapturedCall(run=None, k=2, device=torch.device("cpu"))
+    call = _pooled_call(2)
     call._eager = lambda st, pl: eager.append(pl) or {}
     call.graph, call.binding = _FakeGraph(), _binding(state, pool)
     call.out = (torch.tensor(0.0), torch.zeros(2))
@@ -212,7 +218,7 @@ def test_pool_on_the_cpu_runs_the_eager_loop():
     for capture in (True, False):
         fn = make_train_scan(model, batch=2, steps_per_call=2, capture=capture)
         m = fn(create_train_state(model), pool, [1, 2])
-        assert fn.captured == {} and fn.losses.shape == (2,)
+        assert fn.graphs == {} and fn.losses.shape == (2,)
         assert set(m) == {"Pixel", "PixelLast"} and float(m["PixelLast"]) == float(fn.losses[-1])
 
 
