@@ -54,12 +54,13 @@ Phases, one line or block of output each; any failure exits non-zero:
      world-1 NCCL group (torchrun's variables for one rank) for one pooled
      epoch of 16 steps over phase 4's pool, its parameters against the same
      run without --multihost (1e-5 relative), the pooled step with and
-     without DistributedDataParallel in turns and under torch.profiler;
-     (b) two ranks on the one card over gloo (NCCL refuses two ranks on one
-     device; its times are no measure of NCCL): train_syn --multihost, 8
-     pooled f32 steps at global batch 8 and the merged eval, the ranks'
-     parameters against a one-process replay that noises each rank's rows
-     with K1 under that rank's seed, one checkpoint set; (c) the
+     without --multihost (a data-parallel CUDA graph) in turns and under
+     torch.profiler; (b) two ranks on the one card over gloo (NCCL refuses
+     two ranks on one device; its times are no measure of NCCL):
+     train_syn --multihost, 8 pooled f32 steps at global batch 8 and the
+     merged eval, the ranks' parameters against a one-process replay that
+     noises each rank's rows with K1 under that rank's seed, one
+     checkpoint set, the trainers eager under gloo and saying so once; (c) the
      full-frame forward halo-sharded over [cuda:0] x 2 and x 4 against the
      eager forward (mean 1e-3) with both times, and test_eld --mesh_spatial
      2 refused naming the missing card; (d) how long save() holds the loop,
@@ -122,6 +123,20 @@ Phases, one line or block of output each; any failure exits non-zero:
      its frames/s in turns and the memory reserved around the capture,
      and Engine.eval over phase 5's SID rawpacks with equal metrics both
      ways; (d) roofline on the graph path, unet and unet_s2d at batch 16;
+ 12. the data-parallel train step and pooled call as one CUDA graph per
+     rank, in a world-1 NCCL group (torchrun's variables for one rank),
+     unet at the README quick-start's width over phase 11's 64-patch
+     store: (a) train_syn --scan 4, 2 epochs of 8 pooled steps, with
+     --multihost (a graph with the gradient all-reduce inside), with
+     --multihost and the Engine's trainer built with capture=False (eager
+     DDP) and without a group (the one-process graph): every loss and the
+     parameters bit for bit under cudnn.deterministic, replays equal to
+     the calls less one, K1 launches equal to the steps; (b) the same
+     three arms through Engine.train per step, 2 epochs, the second at
+     rate 0; (c) a replayed data-parallel call's trace names the NCCL
+     all-reduce kernel, K1 and a convolution; (d) ms a pooled and a
+     per-step step in turns for the three arms, unet and unet_s2d at
+     batch 8, and wall against device-busy ms of one profiled call each;
 and prints the kernels' JSON line, the card line, and a last JSON line
 {"ok": true, "device": {...}}.  It imports nothing of JAX.
 """
@@ -1315,6 +1330,12 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def _dp_env():
+    """torchrun's variables for one rank, for a world-1 NCCL group."""
+    return {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+            "MASTER_PORT": str(_free_port())}
+
+
 def _cpu_state(model):
     return {k: v.detach().float().cpu().clone() for k, v in model.state_dict().items()}
 
@@ -1356,6 +1377,12 @@ def _pooled_step_ms(engine, pool, calls=3):
     return out
 
 
+def _is_nccl(name: str) -> bool:
+    """Whether a kernel is NCCL's: its collectives, or the reduction of a
+    one-rank group (``oneRankReduce``)."""
+    return any(w in name.lower() for w in ("nccl", "allreduce", "onerankreduce"))
+
+
 def _profiled_call(engine, pool):
     """One pooled call of 10 steps under torch.profiler (device activity
     only): (wall ms, device busy ms, NCCL kernels' device ms)."""
@@ -1372,14 +1399,16 @@ def _profiled_call(engine, pool):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     nccl = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
-               if "nccl" in e.key.lower()) / 1e3
+               if _is_nccl(e.key)) / 1e3
     return wall, _device_busy_ms(prof), nccl
 
 
 def phase7a(card, tmp, traindir, pool):
     """train_syn --multihost in a world-1 NCCL group (torchrun's variables
     for one rank) against the same run without it: one pooled epoch of 16
-    steps; then the pooled step with and without DistributedDataParallel."""
+    steps; then the pooled step with and without --multihost (its trainer
+    a data-parallel CUDA graph, the gradient all-reduce inside), in
+    turns."""
     import torch
     import torch.distributed as dist
 
@@ -1395,8 +1424,7 @@ def phase7a(card, tmp, traindir, pool):
         env = {}
         if tag == "multihost":
             argv.append("--multihost")
-            env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
-                   "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port())}
+            env = _dp_env()
         os.environ.update(env)
         try:
             synthesize_kernel.launches = 0
@@ -1424,25 +1452,26 @@ def phase7a(card, tmp, traindir, pool):
     rel = diff / scale
     check(rel <= 1e-5, f"7a: --multihost vs plain parameters differ by {diff} ({rel:.3g} of "
                        f"the largest, tol 1e-5)")
-    # the step with DDP (its NCCL all-reduce of the gradients, one rank) and
-    # without, in turns within this call
+    # the step with --multihost (a graph with its NCCL all-reduce of the
+    # gradients, one rank) and without, in turns within this call
     times = {"plain": [], "multihost": []}
     for tag in ("plain", "multihost", "multihost", "plain"):
         times[tag] += _pooled_step_ms(runs[tag][0], pool)
-    # where DDP's time goes: the device's busy time against the wall
+    # the device's busy time against the wall
     prof = {tag: _profiled_call(runs[tag][0], pool) for tag in ("plain", "multihost")}
     dist.destroy_process_group()
     print(f"[7a] train_syn --multihost, world-1 NCCL group: 16 pooled steps (calls "
           f"{[h[0] for h in engine.history]}) in {runs['multihost'][1]:.2f} s, noise kernel "
           f"launches {runs['multihost'][2]}; without --multihost {runs['plain'][1]:.2f} s; "
           f"parameters equal within {diff:.3g} ({rel:.3g} relative, tol 1e-5)", flush=True)
-    print(f"[7a] pooled step ms (bf16, batch 8, 512^2, calls of 10, turns plain/ddp/ddp/plain): "
-          f"without DDP {', '.join(f'{t:.2f}' for t in times['plain'])}; with DDP (NCCL, "
-          f"one rank) {', '.join(f'{t:.2f}' for t in times['multihost'])} on {card}", flush=True)
+    print(f"[7a] pooled step ms (bf16, batch 8, 512^2, calls of 10, turns plain/dp/dp/plain): "
+          f"one process {', '.join(f'{t:.2f}' for t in times['plain'])}; --multihost (a "
+          f"data-parallel graph, NCCL, one rank) "
+          f"{', '.join(f'{t:.2f}' for t in times['multihost'])} on {card}", flush=True)
     busy = {tag: "not measured" if b is None else f"{b:.1f} ms" for tag, (_, b, _) in prof.items()}
-    print(f"[7a] one call of 10 steps under torch.profiler: without DDP {prof['plain'][0]:.1f} ms "
-          f"wall, device busy {busy['plain']}; with DDP {prof['multihost'][0]:.1f} ms wall, device "
-          f"busy {busy['multihost']}, NCCL kernels {prof['multihost'][2]:.2f} ms on {card}",
+    print(f"[7a] one call of 10 steps under torch.profiler: one process {prof['plain'][0]:.1f} ms "
+          f"wall, device busy {busy['plain']}; --multihost {prof['multihost'][0]:.1f} ms wall, "
+          f"device busy {busy['multihost']}, NCCL kernels {prof['multihost'][2]:.2f} ms on {card}",
           flush=True)
     return {"launches": launches, "steps": 32, "step_ms": times, "param_diff": diff,
             "param_rel": rel, "profiled_call": prof}
@@ -1457,6 +1486,7 @@ def _rank7b(rank, port, argv, out):
     from eld_tpu_torch.noise.kernels import synthesize_kernel
     from eld_tpu_torch.parallel.multihost import initialize_multihost
     from eld_tpu_torch.tools import train_syn
+    from eld_tpu_torch.train import steps
     from eld_tpu_torch.train.checkpoints import wait_for_saves
 
     initialize_multihost(f"127.0.0.1:{port}", 2, rank, backend="gloo")
@@ -1472,7 +1502,10 @@ def _rank7b(rank, port, argv, out):
     torch.save({"params": _cpu_state(engine.model), "launches": synthesize_kernel.launches,
                 "steps": engine.iterations, "history": [h[:2] for h in engine.history],
                 "eval": engine.eval_history, "wall": wall,
-                "files": sorted(os.listdir(engine.cfg.save_dir))},
+                "files": sorted(os.listdir(engine.cfg.save_dir)),
+                # gloo's collectives run on the host: the trainers stay eager
+                "graphs": sum(len(fn.graphs) for fn in engine._train_scans.values()),
+                "said": sorted(m for m in steps._SAID if steps.HOST_COLLECTIVES in m)},
                os.path.join(out, f"rank{rank}.pt"))
     dist.destroy_process_group()
 
@@ -1524,6 +1557,8 @@ def phase7b(card, tmp, traindir, evaldir):
     for r, res in enumerate(ranks):
         check(res["steps"] == 8 and res["launches"] == 8,
               f"7b rank {r}: {res['steps']} steps, {res['launches']} noise kernel launches")
+        check(res["graphs"] == 0 and len(res["said"]) == 1 and "pooled trainer" in res["said"][0],
+              f"7b rank {r}: {res['graphs']} CUDA graphs under gloo; said {res['said']}")
         check(all(math.isfinite(v) for h in res["history"] for v in h[1].values()),
               f"7b rank {r}: non-finite loss {res['history']}")
     check(all(torch.equal(v, ranks[1]["params"][k]) for k, v in ranks[0]["params"].items()),
@@ -1574,7 +1609,8 @@ def phase7b(card, tmp, traindir, evaldir):
           f"+ {ranks[1]['launches']}; parameters bitwise equal on both ranks and equal to the "
           f"one-process replay within {worst:.3g} ({share:.5f} within 1e-6); the ranks' noise "
           f"agrees on {noise_agree:.4%}; merged eval identical on both ranks ({evals}); one "
-          f"checkpoint set {pts}; {wall:.2f} s wall with the ranks' start-up "
+          f"checkpoint set {pts}; eager under gloo, said once: '{ranks[0]['said'][0]}'; "
+          f"{wall:.2f} s wall with the ranks' start-up "
           f"(train_syn {ranks[0]['wall']:.2f} / {ranks[1]['wall']:.2f} s) on {card}", flush=True)
     return {"launches": ranks[0]["launches"] + ranks[1]["launches"], "rank_steps": 16,
             "max_diff": worst, "share_1e-6": share, "wall_s": wall}
@@ -2877,6 +2913,312 @@ def phase11(card, tmp, sid=None):
             "steps": sum(out[k].get("steps", 0) for k in out)}
 
 
+# ---- phase 12 -----------------------------------------------------------
+
+DP_SCAN = 4  # 12a's steps per pooled call: 2 epochs of 8 steps are 4 calls, 3 replays
+DP_TIMED = 3  # pooled calls of GRAPH_K steps per timed turn in 12d, two turns per arm
+
+
+def _dp_engine(tmp, arch, multihost, name):
+    """A full-width training Engine at the README quick-start's settings
+    (bf16, batch 8, eld noise, SonyA7S2), its weights from SEED, with or
+    without --multihost."""
+    from eld_tpu_torch.config import Config
+    from eld_tpu_torch.train.engine import Engine
+
+    return Engine(Config(device="cuda", netG=arch, noise="eld", include=4, batch_size=8,
+                         bf16=True, is_train=True, no_log=True, no_verbose=True, seed=SEED,
+                         multihost=multihost, checkpoints_dir=os.path.join(tmp, "ck12"),
+                         name=name))
+
+
+def _dp_trainers(engine, k):
+    """The three arms on one Engine's model and state: its own pooled (K)
+    and per-step trainers (a data-parallel graph under --multihost), the
+    same built with capture=False (eager DDP), and the one-process graph
+    (no DDP wrapper, no collective)."""
+    import torch
+
+    from eld_tpu_torch.train.steps import make_train_scan, make_train_step
+
+    kw = dict(noise_model="eld", bank=engine.bank, autocast_dtype=torch.bfloat16)
+    dp = dict(forward=engine._forward, shard=(engine.rank, engine.world))
+    return {"dp_graph": (engine._scan_fn(k), engine._train_step),
+            "dp_eager": (make_train_scan(engine.model, batch=8, steps_per_call=k, capture=False,
+                                         **dp, **kw),
+                         make_train_step(engine.model, capture=False, **dp, **kw)),
+            "one_graph": (make_train_scan(engine.model, batch=8, steps_per_call=k, **kw),
+                          make_train_step(engine.model, **kw))}
+
+
+def phase12ab(card, tmp, store):
+    """The data-parallel graph against eager DDP and the one-process graph,
+    bit for bit under cudnn.deterministic, in a world-1 NCCL group.  (a)
+    train_syn over ``store`` for 2 epochs of 8 pooled steps, --scan 4:
+    without a group, with --multihost (its trainer a graph), with
+    --multihost and the Engine's trainer built with capture=False.  (b)
+    Engine.train per step over a Loader of the store, 2 epochs, the
+    second at rate 0, in the same three arms."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from eld_tpu_torch.data.datasets import CleanPatchDataset
+    from eld_tpu_torch.data.loader import Loader
+    from eld_tpu_torch.data.patchstore import PatchStore
+    from eld_tpu_torch.noise.kernels import synthesize_kernel
+    from eld_tpu_torch.parallel.multihost import host_shard
+    from eld_tpu_torch.tools import train_syn
+    from eld_tpu_torch.train import engine as engine_mod
+    from eld_tpu_torch.train import steps
+    from eld_tpu_torch.train.steps import graph_replays, make_train_step
+
+    argv = ["--traindir", os.path.dirname(store), "--evaldir", os.path.join(tmp, "no_eval"),
+            "--noise", "eld", "--include", "4", "-b", "8", "--bf16", "--epochs", "2",
+            "--no-log", "--no-verbose", "--seed", str(SEED), "--nThreads", "4", "--device",
+            "cuda", "--scan", str(DP_SCAN)]
+    scan_builder = engine_mod.make_train_scan
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {"a": {}, "b": {}}
+    launches = steps_total = 0
+    try:
+        # no group, then --multihost (train_syn makes the group from
+        # torchrun's variables), then --multihost with capture=False
+        for arm in ("one", "dp_graph", "dp_eager"):
+            dp = arm != "one"
+            # (a) train_syn, pooled
+            engine_mod.make_train_scan = (scan_builder if arm != "dp_eager" else
+                                          lambda *a, **kw: scan_builder(*a, **kw, capture=False))
+            synthesize_kernel.launches = 0
+            engine = train_syn.main(argv + ["--checkpoints_dir", os.path.join(tmp, "ck12a"),
+                                            "--name", f"a_{arm}"] + (["--multihost"] if dp else []))
+            torch.cuda.synchronize()
+            engine_mod.make_train_scan = scan_builder
+            runs["a"][arm] = {"losses": [h[1] for h in engine.history],
+                              "params": _cpu_state(engine.model), "steps": engine.iterations,
+                              "launches": synthesize_kernel.launches,
+                              "replays": graph_replays(engine._scan_fn(DP_SCAN)),
+                              "ddp": engine._forward is not None}
+            launches += synthesize_kernel.launches
+            steps_total += engine.iterations
+            if dp:
+                check(dist.is_initialized() and dist.get_backend() == "nccl"
+                      and dist.get_world_size() == 1,
+                      f"12a {arm}: --multihost did not run in a world-1 NCCL group")
+            del engine
+            # (b) Engine.train, per step
+            eng = _dp_engine(tmp, "unet", dp, f"b_{arm}")
+            if arm == "dp_eager":
+                eng._train_step = make_train_step(
+                    eng.model, noise_model="eld", bank=eng.bank, autocast_dtype=torch.bfloat16,
+                    forward=eng._forward, shard=(eng.rank, eng.world), capture=False)
+            loader = Loader(CleanPatchDataset(PatchStore(store), device_normalize=True,
+                                              rng=np.random.default_rng(SEED)),
+                            batch_size=8, shuffle=True, num_workers=4, seed=SEED,
+                            drop_last=True, shard=host_shard())
+            synthesize_kernel.launches = 0
+            moved = []
+            for lr in STEP_EPOCH_RATES:
+                eng.set_learning_rate(lr)
+                before = _cpu_state(eng.model)
+                eng.train(loader)
+                moved.append(_mean_move(before, eng.model))
+            torch.cuda.synchronize()
+            runs["b"][arm] = {"losses": [h[1]["Pixel"] for h in eng.history],
+                              "params": _cpu_state(eng.model), "steps": eng.iterations,
+                              "launches": synthesize_kernel.launches,
+                              "replays": graph_replays(eng._train_step), "moved": moved,
+                              "ddp": eng._forward is not None}
+            launches += synthesize_kernel.launches
+            steps_total += eng.iterations
+            del eng
+            torch.cuda.empty_cache()
+    finally:
+        engine_mod.make_train_scan = scan_builder
+        torch.backends.cudnn.deterministic = deterministic
+    said = sorted(m for m in steps._SAID if steps.EAGER_ARM in m)
+    check(len(said) == 2, f"12: the eager arm said {said}, want one line per trainer")
+    for part, want_steps, want_replays in (("a", 16, 16 // DP_SCAN - 1), ("b", 16, 15)):
+        r = runs[part]
+        for arm, v in r.items():
+            graph = arm != "dp_eager"
+            check(v["steps"] == v["launches"] == want_steps
+                  and v["replays"] == (want_replays if graph else 0)
+                  and v["ddp"] == (arm != "one"),
+                  f"12{part} {arm}: {v['steps']} steps, {v['launches']} K1 launches, "
+                  f"{v['replays']} replays, DDP built {v['ddp']} (want {want_steps}, "
+                  f"{want_steps}, {want_replays if graph else 0}, {arm != 'one'})")
+            check(v["losses"] == r["one"]["losses"],
+                  f"12{part} {arm}: losses {v['losses']} vs one process {r['one']['losses']}")
+            diff = max(float((v["params"][k] - x).abs().max())
+                       for k, x in r["one"]["params"].items())
+            check(diff == 0, f"12{part} {arm}: parameters differ from one process by {diff}")
+        if part == "b":
+            for arm, v in r.items():
+                check(v["moved"][0] > 0 and v["moved"][1] == 0,
+                      f"12b {arm}: mean |move| per epoch {v['moved']} (want > 0, then 0 at "
+                      f"rate 0)")
+    print(f"[12a] train_syn --scan {DP_SCAN}, 2 epochs of 8 pooled steps (unet b8 bf16), "
+          f"cudnn.deterministic: --multihost as a CUDA graph ({runs['a']['dp_graph']['replays']} "
+          f"replays) == --multihost with capture=False (eager DDP) == no group (one-process "
+          f"graph, {runs['a']['one']['replays']} replays), every call's losses and the "
+          f"parameters bit for bit; 16 steps and 16 K1 launches in each; losses "
+          f"{', '.join(f'{h[k]:.5f}' for h in runs['a']['one']['losses'][:2] for k in sorted(h))}"
+          f" on {card}", flush=True)
+    print(f"[12b] Engine.train per step over the store's Loader, 2 epochs of 8 (rates "
+          f"{list(STEP_EPOCH_RATES)}): --multihost graph ({runs['b']['dp_graph']['replays']} "
+          f"replays) == capture=False eager DDP == no group (one-process graph), every loss and "
+          f"the parameters bit for bit, nothing moved at rate 0; 16 K1 launches in each; "
+          f"'{said[0]}'", flush=True)
+    return {"launches": launches, "steps": steps_total}
+
+
+def _dp_profiled(tmp, name, fn):
+    """One call of ``fn`` under torch.profiler (CPU and CUDA activity):
+    (wall ms, the device's busy ms and the kernel names, from the trace)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    path = os.path.join(tmp, f"12_{name}.json")
+    prof.export_chrome_trace(path)
+    names, busy, _, _ = _trace_reading(path)
+    return wall, busy, names
+
+
+def phase12cd(card, tmp):
+    """(c) a replayed data-parallel call's trace names an NCCL all-reduce
+    kernel beside K1 and a convolution; (d) ms a pooled step (calls of 10)
+    and a per-step step, in turns, the data-parallel graph, eager DDP and
+    the one-process graph on one Engine's model (unet and unet_s2d, batch
+    8, a resident pool and batch), and wall against device-busy ms of one
+    profiled call of each arm."""
+    import torch
+
+    from eld_tpu_torch.noise.kernels import synthesize_kernel
+    from eld_tpu_torch.train.steps import fold_in, graph_replays
+
+    dev = torch.device("cuda")
+    pool = {"clean": _smooth_u16(64, dev)}
+    batch = {"clean": pool["clean"][:8].clone()}
+    out, launches, steps_total, named = {}, 0, 0, {}
+    for arch in ("unet", "unet_s2d"):
+        eng = _dp_engine(tmp, arch, True, f"cd_{arch}")
+        arms = _dp_trainers(eng, GRAPH_K)
+        n = [0]
+        synthesize_kernel.launches = 0
+        step0 = eng.iterations
+
+        def pooled(arm):
+            arms[arm][0](eng.state, pool, [fold_in(SEED, 80_000 + n[0] + j)
+                                           for j in range(GRAPH_K)])
+            n[0] += GRAPH_K
+
+        def per_step(arm, count=STEP_TIMED):
+            for _ in range(count):
+                arms[arm][1](eng.state, batch, fold_in(SEED, 80_000 + n[0]))
+                n[0] += 1
+
+        for arm in arms:  # the graphs' eager call and capture, the eager arm's first call
+            for _ in range(1 if arm == "dp_eager" else 2):
+                pooled(arm)
+                per_step(arm, 1)
+        ms = {"pooled": {a: [] for a in arms}, "per_step": {a: [] for a in arms}}
+        for arm in ("dp_graph", "dp_eager", "one_graph", "one_graph", "dp_eager", "dp_graph"):
+            for path, fn, count in (("pooled", pooled, DP_TIMED * GRAPH_K),
+                                    ("per_step", per_step, STEP_TIMED)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(DP_TIMED if path == "pooled" else 1):
+                    fn(arm)
+                torch.cuda.synchronize()
+                ms[path][arm].append((time.perf_counter() - t0) / count * 1e3)
+        prof = {}
+        for path, fn in (("pooled", pooled), ("per_step", per_step)):
+            for arm in arms:
+                replays = graph_replays(arms[arm][0 if path == "pooled" else 1])
+                wall, busy, names = _dp_profiled(tmp, f"{arch}_{path}_{arm}", lambda: fn(arm))
+                prof[f"{path}_{arm}"] = {"wall_ms": wall, "busy_ms": busy}
+                if arm == "dp_graph":
+                    calls = 1 if path == "pooled" else STEP_TIMED
+                    check(graph_replays(arms[arm][0 if path == "pooled" else 1])
+                          == replays + calls, f"12c {arch} {path}: the profiled calls were no "
+                                              f"replays")
+                    named[f"{arch}_{path}"] = names
+        torch.cuda.synchronize()
+        check(synthesize_kernel.launches == n[0] == eng.iterations - step0,
+              f"12d {arch}: {synthesize_kernel.launches} K1 launches for "
+              f"{eng.iterations - step0} steps ({n[0]} seeds)")
+        launches += synthesize_kernel.launches
+        steps_total += eng.iterations - step0
+        out[arch] = {"ms": ms, "profile": prof}
+        for path in ("pooled", "per_step"):
+            print(f"[12d] {arch} batch 8 {path} ms a step (bf16, 512^2, world-1 NCCL group, "
+                  f"turns graph/eager/one/one/eager/graph): data-parallel graph "
+                  f"{', '.join(f'{v:.2f}' for v in ms[path]['dp_graph'])}; eager DDP "
+                  f"{', '.join(f'{v:.2f}' for v in ms[path]['dp_eager'])}; one-process graph "
+                  f"{', '.join(f'{v:.2f}' for v in ms[path]['one_graph'])}; one profiled "
+                  + ("call" if path == "pooled" else f"window of {STEP_TIMED} steps")
+                  + " wall / device busy ms: " + "; ".join(
+                      f"{arm} {prof[f'{path}_{arm}']['wall_ms']:.1f} / "
+                      f"{prof[f'{path}_{arm}']['busy_ms']:.1f}" for arm in arms)
+                  + f" on {card}", flush=True)
+        del eng, arms
+        torch.cuda.empty_cache()
+    for key, names in named.items():
+        k1 = sorted({_kernel_name(x) for x in names if "noise_synth_kernel" in x})
+        conv = sorted(x for x in names if any(w in x.lower() for w in
+                                              ("conv", "fprop", "dgrad", "wgrad")))
+        nccl = sorted(x for x in names if _is_nccl(x))
+        check(bool(k1) and bool(conv) and bool(nccl),
+              f"12c {key}: a replay's trace names NCCL {nccl}, K1 {k1}, convolutions {conv[:2]}")
+        print(f"[12c] {key}: a replayed data-parallel graph's trace names the all-reduce "
+              f"{[_kernel_name(x)[-80:] for x in nccl]}, K1 {k1} and {len(conv)} convolution "
+              f"kernels", flush=True)
+    return {"launches": launches, "steps": steps_total, "results": out,
+            "nccl_kernels": {k: sorted(x for x in v if _is_nccl(x)) for k, v in named.items()}}
+
+
+def phase12(card, tmp, store=None):
+    """The data-parallel train step and pooled call as one CUDA graph per
+    rank, in a world-1 NCCL group: 12a/12b bit for bit against eager DDP
+    and the one-process graph, 12c the all-reduce in a replay's trace, 12d
+    the times.  ``store``: phase 11's 64-patch store (written anew when
+    phase 12 runs alone)."""
+    import torch
+    import torch.distributed as dist
+
+    t = [time.perf_counter()]
+    if store is None:
+        store = os.path.join(tmp, "train12", "SID_Sony_Raw.eps")
+        os.makedirs(os.path.dirname(store))
+        _write_store(store, count=64)
+    # torchrun's variables for one rank; only --multihost makes a group of them
+    env = _dp_env()
+    os.environ.update(env)
+    try:
+        ab = phase12ab(card, tmp, store)
+        t.append(time.perf_counter())
+        cd = phase12cd(card, tmp)
+        t.append(time.perf_counter())
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+    print(f"[12] phase 12: {t[-1] - t[0]:.1f} s (12a+b {t[1] - t[0]:.1f} s, 12c+d "
+          f"{t[2] - t[1]:.1f} s); torch {torch.__version__}, NCCL {torch.cuda.nccl.version()}",
+          flush=True)
+    print("[12] " + json.dumps({"12d": cd["results"], "12c": cd["nccl_kernels"]}), flush=True)
+    return {"launches": ab["launches"] + cd["launches"], "steps": ab["steps"] + cd["steps"]}
+
+
 def main():
     check(len(sys.argv) == 1, f"unknown arguments {sys.argv[1:]}")
     card = phase0()
@@ -2919,18 +3261,20 @@ def main():
         p10 = phase10(card, tmp)
         torch.cuda.empty_cache()
         p11 = phase11(card, tmp, (p5["sid"], p5["pairs"]))
+        torch.cuda.empty_cache()
+        p12 = phase12(card, tmp, os.path.join(tmp, "train11", "SID_Sony_Raw.eps"))
 
     from eld_tpu_torch.noise.kernels import REPLACES, SOURCE_PATH
 
     launches = (s["launches"] + pooled_launches + srgb_launches + p7["7a"]["launches"]
                 + p7["7b"]["launches"] + p8["launches"] + p9["launches"] + p10["launches"]
-                + p11["launches"])
+                + p11["launches"] + p12["launches"])
     # a data-parallel rank's step counts as a step: one launch each; phase
     # 9's plain-noise arms are not on K1's path and count no steps; a
     # replayed CUDA graph's K1 launches are counted by its runner
     steps = (s["steps"] + pooled_steps + srgb_steps + p7["7a"]["steps"]
              + p7["7b"]["rank_steps"] + p8["steps"] + p9["steps"] + p10["steps"]
-             + p11["steps"])
+             + p11["steps"] + p12["steps"])
     kernels = {"kernels": [{
         "name": "noise_synth", "route": "cuda", "source": SOURCE_PATH, "replaces": REPLACES,
         "launches": launches, "max_abs_err": k["max_abs_err"], "ms": k["ms"],

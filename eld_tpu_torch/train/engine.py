@@ -18,11 +18,13 @@ of ``train_pool``'s first call on the pooled one, to
 ``save_dir/profile/<train|train_pool>.pt.trace.json``.
 
 Under ``--multihost`` (one torch.distributed rank per card, launched by
-torchrun) the Engine trains data-parallel through a
-DistributedDataParallel wrapper of the model, stride-shards eval and test
+torchrun) the Engine trains data-parallel, stride-shards eval and test
 items over the ranks and merges the eval's metric sums in rank order, and
 rank 0 alone writes checkpoints, TensorBoard, progress, traces and
-``best_val.json``; every rank enters ``save()``.
+``best_val.json``; every rank enters ``save()``.  On the card over NCCL
+the per-step and pooled trainers are CUDA graphs that hold the gradient
+all-reduce; over gloo (or with ``capture=False``) they run eagerly
+through a DistributedDataParallel wrapper of the model.
 """
 
 from __future__ import annotations
@@ -69,6 +71,23 @@ from eld_tpu_torch.utils.logging import (
 )
 
 
+def _data_parallel(model: torch.nn.Module) -> DistributedDataParallel:
+    """A DistributedDataParallel wrapper of ``model``, built on a side
+    stream on a card.  DDP keeps each parameter's gradient accumulator,
+    and an accumulator runs on the stream it was made on: one made on the
+    default stream would make that stream wait on a CUDA graph's capture
+    of the backward, which CUDA refuses."""
+    device = next(model.parameters()).device
+    if device.type != "cuda":
+        return DistributedDataParallel(model)
+    main, side = torch.cuda.current_stream(device), torch.cuda.Stream(device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        ddp = DistributedDataParallel(model)
+    main.wait_stream(side)
+    return ddp
+
+
 class Engine:
     def __init__(self, cfg: Config):
         self.cfg = cfg
@@ -113,14 +132,15 @@ class Engine:
         autocast = torch.bfloat16 if cfg.bf16 else None
         self.bank = None
         self._train_step = None
-        # the module the train step calls: under --multihost a
-        # DistributedDataParallel wrapper, which averages the gradients over
-        # the ranks; saves and loads go through self.model underneath, so
-        # the .pt keeps the reference's parameter names
+        # under --multihost a DistributedDataParallel wrapper: built, it
+        # broadcasts rank 0's parameters; the eager trainers call it, and it
+        # averages the gradients over the ranks (a CUDA graph calls
+        # self.model and all-reduces them itself); saves and loads go
+        # through self.model, so the .pt keeps the reference's names
         self._forward = None
         if cfg.is_train:
             if cfg.multihost:
-                self._forward = DistributedDataParallel(model)
+                self._forward = _data_parallel(model)
             synthetic = cfg.noise not in (None, "", "none")
             if synthetic:
                 self.bank = load_camera_params(include=cfg.include, exclude=cfg.exclude,

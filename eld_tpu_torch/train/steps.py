@@ -16,9 +16,11 @@ On a card all three run as CUDA graphs (``_GraphCall``), as eld_tpu
 ``jax.jit``s each one into one XLA program: the step and the forward one
 graph per input shape, the pooled call one per (K, batch).  The first
 call of a shape runs eagerly, the second captures and replays, every
-later one replays.  Data parallelism keeps the train paths eager (DDP's
-hooks and NCCL are not captured), and ``capture=False`` keeps any path
-eager on a card; a path that stays eager says so once.
+later one replays.  Under data parallelism over an NCCL group the train
+paths capture too, the gradient all-reduce inside the graph; over a
+gloo group they stay eager (its collectives run on the host), and
+``capture=False`` keeps any path eager on a card; a path that stays
+eager says so once.
 
 Randomness is a pure function of the step seed, which the Engine derives
 from (cfg.seed, iteration) with ``fold_in``, so a resumed run sees the
@@ -34,9 +36,12 @@ draws the GLOBAL batch's randomness from the step seed (the noise
 parameters, and in the pool the picks and the augmentation masks) and
 keeps its own rows (``parallel.mesh.rank_rows``), so the global batch is
 the one-process run's.  The noise of a rank's rows is seeded with
-``rank_noise_seed``.  The forward is a DistributedDataParallel wrapper,
-which averages the gradients over the ranks; the reported loss is the
-mean over ranks, reduced once per call.
+``rank_noise_seed``.  The gradients are averaged over the ranks: on the
+eager path by the DistributedDataParallel wrapper the step calls, in a
+CUDA graph by one explicit all-reduce of a flat buffer between the
+backward and Adam (``_GraphCall._mean_grads``), as XLA puts the psum
+inside eld_tpu's mesh program.  The reported loss is the mean over
+ranks, reduced once per call.
 """
 
 from __future__ import annotations
@@ -153,13 +158,16 @@ def global_mean(values: torch.Tensor, world: int = 1) -> torch.Tensor:
 
 
 def _make_local_step(loss, noise_model, bank, k_mode, noise_impl, autocast_dtype, forward, shard):
-    """``step(state, batch, rng, noise_seed) -> loss``: one optimizer step on
-    this rank's rows, drawing its noise parameters from ``rng`` (a
-    ``StepRandom`` seeded from the step seed) and its noise from
+    """``step(state, batch, rng, noise_seed, grads=None) -> loss``: one
+    optimizer step on this rank's rows, drawing its noise parameters from
+    ``rng`` (a ``StepRandom`` seeded from the step seed) and its noise from
     ``noise_seed`` (``rank_noise_seed`` of it: an int, or in a CUDA graph a
     one-element int64 tensor on the card for K1 and a generator seeded
     with it for the plain noise); returns the rank's own loss (detached,
-    on the device)."""
+    on the device).  ``grads(model)``, where given, averages the
+    gradients over the ranks before Adam, and the step then calls
+    ``state.model`` itself, not ``forward`` (a CUDA graph's data-parallel
+    step: DDP's hooks do nothing when its wrapper is not called)."""
     synthetic = noise_model is not None
     if synthetic and bank is None:
         raise ValueError("synthetic training needs a CameraParamsBank")
@@ -181,7 +189,7 @@ def _make_local_step(loss, noise_model, bank, k_mode, noise_impl, autocast_dtype
             return synthesize(gen, clean, nparams, model=noise_model, clip=True)
         return synthesize_kernel(noise_seed, clean, nparams, model=noise_model, clip=True)
 
-    def step(state: TrainState, batch, rng: StepRandom, noise_seed) -> torch.Tensor:
+    def step(state: TrainState, batch, rng: StepRandom, noise_seed, grads=None) -> torch.Tensor:
         if synthetic:
             clean = to_f32(batch["clean"]).contiguous()
             with torch.no_grad():
@@ -194,9 +202,11 @@ def _make_local_step(loss, noise_model, bank, k_mode, noise_impl, autocast_dtype
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
         with _autocast(noisy.device, autocast_dtype):
-            pred = (state.model if forward is None else forward)(noisy)
+            pred = (state.model if forward is None or grads is not None else forward)(noisy)
         loss_val = loss_fn(pred.float(), target)
         loss_val.backward()
+        if grads is not None:
+            grads(state.model)
         state.optimizer.step()
         state.step += 1
         return loss_val.detach()
@@ -228,8 +238,8 @@ def make_train_step(
 
     ``shard=(rank, world)``: the batch holds this rank's N rows of a global
     batch of N * world, ``forward`` is the DistributedDataParallel wrapper
-    of ``state.model`` the step calls (default: ``state.model``), and
-    "Pixel" is the mean over the ranks (see the module docstring).
+    of ``state.model`` the eager step calls (default: ``state.model``),
+    and "Pixel" is the mean over the ranks (see the module docstring).
 
     On a card the step is one CUDA graph per batch signature (the keys,
     shapes and dtypes; ``_GraphCall``), as eld_tpu's is one ``jax.jit``
@@ -237,32 +247,36 @@ def make_train_step(
     second captures and replays, every later one copies its batch into
     the graph's input buffers and replays.  The same seed gives the same
     noise parameters and noise as the eager step, and "Pixel" is a copy
-    of the graph's loss.  It stays eager for CPU tensors, under data
-    parallelism (a ``forward`` wrapper or ``shard[1] > 1``; said once)
-    and with ``capture=False`` (the A/B against the graph).  The returned
-    function's ``graphs`` holds the graphs by signature.
+    of the graph's loss.  Under data parallelism (a ``forward`` wrapper or
+    ``shard[1] > 1``) over an NCCL group the graph holds the gradient
+    all-reduce and the loss's mean over the ranks too.  The step stays
+    eager for CPU tensors, under data parallelism over a group that is
+    not NCCL (said once) and with ``capture=False`` (the A/B against the
+    graph).  The returned function's ``graphs`` holds the graphs by
+    signature.
     """
     step = _make_local_step(loss, noise_model, bank, k_mode, noise_impl, autocast_dtype,
                             forward, shard)
-    eager_reason = DATA_PARALLEL if forward is not None or shard[1] > 1 else None
+    parallel = forward is not None or shard[1] > 1
     graphs: Dict[tuple, _GraphCall] = {}
 
-    def run(state: TrainState, batch, draws):
+    def run(state: TrainState, batch, draws, grads=None):
         ((rng, noise_seed),) = draws
-        return (step(state, batch, rng, noise_seed),)
+        return (global_mean(step(state, batch, rng, noise_seed, grads), shard[1]),)
 
     def reported(state: TrainState, batch, seed: int):
         dev = next(iter(batch.values())).device
-        if _captures(dev, capture, eager_reason, "train step"):
+        if _captures(dev, capture, _eager_reason(parallel, capture), "train step"):
             key = tuple((k, tuple(v.shape), v.dtype) for k, v in batch.items())
             call = graphs.get(key)
             if call is None:
                 call = graphs[key] = _GraphCall(run, dev, bind=_state_binding, slots=1, steps=1,
-                                                static=True, plain_noise=noise_impl == "plain")
+                                                static=True, plain_noise=noise_impl == "plain",
+                                                shard=shard, all_reduce=parallel)
             (loss,) = call(state, batch, [seed])
             return {"Pixel": loss}
-        loss = step(state, batch, step_random(dev, seed), rank_noise_seed(seed, *shard))
-        return {"Pixel": global_mean(loss, shard[1])}
+        (loss,) = run(state, batch, [(step_random(dev, seed), rank_noise_seed(seed, *shard))])
+        return {"Pixel": loss}
 
     reported.graphs = graphs
     return reported
@@ -327,7 +341,10 @@ def pick_batch(pool: Dict[str, torch.Tensor], batch: int, seed: Optional[int],
 
 
 # why a path on the card stays eager (``say_eager``)
-DATA_PARALLEL = "under data parallelism (DDP's hooks and NCCL are not captured in a CUDA graph)"
+HOST_COLLECTIVES = ("under data parallelism over a process group that is not NCCL (gloo's "
+                    "collectives run on the host, which a CUDA graph cannot hold)")
+EAGER_ARM = ("under data parallelism with capture=False (the eager arm: DistributedDataParallel "
+             "averages the gradients)")
 SPATIAL = ("under --mesh_spatial (the halo-sharded forward crosses cards; it is not captured "
            "in a CUDA graph)")
 _SAID: set = set()
@@ -342,16 +359,33 @@ def say_eager(what: str, why: str):
         print(msg, file=sys.stderr)
 
 
+def nccl_group() -> bool:
+    """Whether the default process group is NCCL's, whose collectives run
+    on the card and so can be captured in a CUDA graph."""
+    return dist.is_available() and dist.is_initialized() and dist.get_backend() == "nccl"
+
+
+def _eager_reason(parallel: bool, capture: bool) -> Optional[str]:
+    """Why a data-parallel train path stays eager on the card: its group
+    is not NCCL's, or ``capture`` is off (None: not data-parallel, or it
+    captures)."""
+    if not parallel:
+        return None
+    if not capture:
+        return EAGER_ARM
+    return None if nccl_group() else HOST_COLLECTIVES
+
+
 def _captures(device: torch.device, capture: bool, eager_reason: Optional[str],
               what: str) -> bool:
     """Whether a call of ``what`` on ``device`` runs as a CUDA graph: on a
     card with ``capture`` set and no ``eager_reason``, which is said once."""
-    if device.type != "cuda" or not capture:
+    if device.type != "cuda":
         return False
     if eager_reason is not None:
         say_eager(what, eager_reason)
         return False
-    return True
+    return capture
 
 
 def graph_replays(fn) -> int:
@@ -390,9 +424,11 @@ class _GraphCall:
     capture), replayed by one launch: the mechanism of the pooled call,
     the per-step train step and the eval forward.
 
-    ``run(state, inputs, draws)`` does the call's work and returns a tuple
-    of tensors; ``draws`` holds one (StepRandom, noise seed) per step of
-    the call (``slots`` of them; none for the forward).  ``bind(state,
+    ``run(state, inputs, draws, grads)`` does the call's work and returns
+    a tuple of tensors; ``draws`` holds one (StepRandom, noise seed) per
+    step of the call (``slots`` of them; none for the forward), and
+    ``grads`` is ``_mean_grads`` for a data-parallel train call
+    (``all_reduce``), else None.  ``bind(state,
     inputs)`` lists the tensors the graph reads and writes in place
     (``_binding``): a graph is valid while they are the same tensors on
     the same storage, and a call that finds them replaced drops it.
@@ -403,7 +439,7 @@ class _GraphCall:
     The graph's randomness is re-drawn at every replay: step j draws from
     the generators of slot j, registered with the graph and reseeded on
     the host from ``seeds[j]`` before the replay, and K1 reads its seed
-    ``rank_noise_seed(seeds[j])`` from element j of a device buffer,
+    ``rank_noise_seed(seeds[j], *shard)`` from element j of a device buffer,
     filled by one copy from pinned memory per call (the plain noise
     instead draws from a registered generator seeded with it).  So step j
     of a replay draws exactly what the eager path draws for ``seeds[j]``.
@@ -417,12 +453,22 @@ class _GraphCall:
     overwrites.  ``pool``: a memory pool shared with other graphs that
     replay one at a time on one stream (None: the graph's own).  A capture
     or replay that fails raises.
+
+    ``shard=(rank, world)`` and ``all_reduce``: a data-parallel train
+    call.  Its noise seeds are the rank's, and each step averages the
+    gradients over the ranks through ``_mean_grads``, one NCCL all-reduce
+    that the graph holds.  The eager call makes the first collective (the
+    communicator exists before any capture) and the flat buffer the
+    graph binds.
     """
 
     def __init__(self, run, device: torch.device, bind, slots: int = 0, steps: int = 0,
-                 static: bool = False, plain_noise: bool = False, pool=None):
+                 static: bool = False, plain_noise: bool = False, pool=None,
+                 shard: tuple = (0, 1), all_reduce: bool = False):
         self.run, self.device, self.bind = run, device, bind
         self.steps, self.static, self.pool = steps, static, pool
+        self.shard, self.all_reduce = shard, all_reduce
+        self.flat: Optional[torch.Tensor] = None  # the gradients, one f32 buffer (all_reduce)
         self.slots = [StepRandom(device) for _ in range(slots)]
         self.noise = [torch.Generator(device=device) for _ in range(slots)] if plain_noise else []
         card = device.type == "cuda"
@@ -441,22 +487,54 @@ class _GraphCall:
     def reset(self):
         """Drop the graph (and its memory); the next call runs eagerly."""
         self.graph, self.binding, self.inputs, self.out = None, None, {}, ()
+        self.flat = None
 
     def _draws(self):
         seeds = self.noise or [self.seeds[j:j + 1] for j in range(len(self.slots))]
         return list(zip(self.slots, seeds))
 
+    def _run(self, state, inputs):
+        return self.run(state, inputs, self._draws(), self._mean_grads if self.all_reduce else None)
+
+    def _mean_grads(self, model: nn.Module):
+        """Average ``model``'s gradients over the ranks in place, as XLA's
+        psum does inside eld_tpu's mesh program: copy them into the call's
+        flat f32 buffer, scale each rank's part by 1/world and sum the parts
+        by one all-reduce, copy back.  DDP reduces the same gradients with
+        the same operations: it multiplies its bucket by 1/world before
+        its sum.  NCCL scales inside the collective (its average, a
+        pre-multiplied sum, is one kernel even at world 1, where its plain
+        sum is no device work); gloo has no average, so the buffer is
+        scaled first."""
+        grads = [p.grad for p in model.parameters()]
+        if self.flat is None:
+            self.flat = torch.empty(sum(g.numel() for g in grads), dtype=torch.float32,
+                                    device=self.device)
+        # views of the buffer with each (dense) gradient's own strides, the
+        # channels-last ones included, so the copies batch into few kernels
+        views, offset = [], 0
+        for g in grads:
+            views.append(self.flat.as_strided(g.shape, g.stride(), offset))
+            offset += g.numel()
+        torch._foreach_copy_(views, grads)
+        if dist.get_backend() == "nccl":
+            dist.all_reduce(self.flat, op=dist.ReduceOp.AVG)
+        else:
+            dist.all_reduce(self.flat.mul_(1.0 / self.shard[1]))
+        torch._foreach_copy_(grads, views)
+
     def _load_seeds(self, seeds: Sequence[int]):
         """Reseed slot j from ``seeds[j]`` and copy the noise seeds
-        ``rank_noise_seed(seeds[j])`` into the graph's seed buffer (or
-        seed the plain noise's generators with them)."""
+        ``rank_noise_seed(seeds[j], *shard)`` into the graph's seed buffer
+        (or seed the plain noise's generators with them)."""
+        noise_seeds = [rank_noise_seed(s, *self.shard) for s in seeds]
         for rng, seed in zip(self.slots, seeds):
             rng.reseed(seed)
-        for gen, seed in zip(self.noise, seeds):
-            gen.manual_seed(rank_noise_seed(seed))
+        for gen, seed in zip(self.noise, noise_seeds):
+            gen.manual_seed(seed)
         if self.copied is not None:
             self.copied.synchronize()  # the last call's copy has read the pinned buffer
-        self.seeds_host.numpy()[:] = [seed_int64(rank_noise_seed(s)) for s in seeds]
+        self.seeds_host.numpy()[:] = [seed_int64(s) for s in noise_seeds]
         self.seeds.copy_(self.seeds_host, non_blocking=True)
         if self.copied is not None:
             self.copied.record()
@@ -486,7 +564,7 @@ class _GraphCall:
         side = torch.cuda.Stream(self.device)
         side.wait_stream(main)
         with torch.cuda.stream(side):
-            out = self.run(state, inputs, self._draws())
+            out = self._run(state, inputs)
         main.wait_stream(side)
         for t in out:
             t.record_stream(main)  # read on the main stream after this call
@@ -507,7 +585,7 @@ class _GraphCall:
         step, launches = (state.step if state is not None else 0), synthesize_kernel.launches
         try:
             with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
-                out = self.run(state, inputs, self._draws())
+                out = self._run(state, inputs)
             self.launches = synthesize_kernel.launches - launches
         finally:
             # the capture ran the call's Python, not its device work
@@ -556,24 +634,27 @@ def make_train_scan(
     and Adam of every step, replayed by one launch, the pool read in place
     and another pool dropping the graph): the first call runs eagerly, the
     second captures and replays, every later one replays, so a call costs
-    the host one launch and its seeds, as eld_tpu's ``lax.scan`` does.  The same seeds give the same picks,
-    masks, parameters and noise as the eager loop.  The eager loop runs
-    for CPU tensors, and under data parallelism (a ``forward`` wrapper or
-    ``shard[1] > 1``, i.e. ``--multihost``), since DDP's gradient hooks
-    and NCCL inside a graph are not captured; it says so once.
-    ``capture=False`` runs the eager loop on a card too (the A/B against
-    the graph).  A capture or replay that fails raises.
+    the host one launch and its seeds, as eld_tpu's ``lax.scan`` does.
+    The same seeds give the same picks, masks, parameters and noise as the
+    eager loop.  Under data parallelism (a ``forward`` wrapper or
+    ``shard[1] > 1``, i.e. ``--multihost``) over an NCCL group the graph
+    holds each step's gradient all-reduce and the losses' mean over the
+    ranks too, as eld_tpu's mesh ``jax.jit`` holds its psum.  The eager
+    loop runs for CPU tensors and under data parallelism over a group
+    that is not NCCL (gloo's collectives run on the host), which it says
+    once.  ``capture=False`` runs the eager loop on a card too (the A/B
+    against the graph).  A capture or replay that fails raises.
     """
     step = _make_local_step(loss, noise_model, bank, k_mode, "auto", autocast_dtype, forward,
                             shard)
     rows = rank_rows(*shard, batch) if shard[1] > 1 else None
-    eager_reason = DATA_PARALLEL if forward is not None or shard[1] > 1 else None
+    parallel = forward is not None or shard[1] > 1
     graphs: Dict[torch.device, _GraphCall] = {}
 
-    def run(state: TrainState, pool, draws: Iterable[Tuple[StepRandom, object]]):
+    def run(state: TrainState, pool, draws: Iterable[Tuple[StepRandom, object]], grads=None):
         """The K steps, each drawing from its (StepRandom, noise seed)."""
         losses = [step(state, pick_batch(pool, batch, None, rows, augment, rng=rng), rng,
-                       noise_seed)
+                       noise_seed, grads)
                   for rng, noise_seed in draws]
         return global_mean(torch.stack(losses), shard[1])
 
@@ -581,12 +662,13 @@ def make_train_scan(
         if len(seeds) != steps_per_call:
             raise ValueError(f"{len(seeds)} seeds for {steps_per_call} steps per call")
         dev = next(iter(pool.values())).device
-        if _captures(dev, capture, eager_reason, "pooled trainer"):
+        if _captures(dev, capture, _eager_reason(parallel, capture), "pooled trainer"):
             call = graphs.get(dev)
             if call is None:
                 call = graphs[dev] = _GraphCall(
-                    lambda st, pl, draws: _mean_and(run(st, pl, draws)), dev, bind=_binding,
-                    slots=steps_per_call, steps=steps_per_call)
+                    lambda st, pl, draws, grads: _mean_and(run(st, pl, draws, grads)), dev,
+                    bind=_binding, slots=steps_per_call, steps=steps_per_call, shard=shard,
+                    all_reduce=parallel)
             mean, multi.losses = call(state, pool, seeds)
             return {"Pixel": mean, "PixelLast": multi.losses[-1]}
         # the process's StepRandom, reseeded from each step's seed just before its step
@@ -645,7 +727,7 @@ def make_eval_forward(model: nn.Module, chop: bool = False,
             return apply(x)
         return apply(edge_pad(x, hp, wp))[:, :h, :w]
 
-    def run(state, inputs, draws):
+    def run(state, inputs, draws, grads):
         return (forward(inputs["x"]),)
 
     def bind(state, inputs):

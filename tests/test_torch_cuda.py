@@ -1,6 +1,7 @@
 """The port's noise kernel (and its device-seed entry), pooled trainer
 and per-step train step (and their CUDA graphs against the eager
-paths), eval forward (and its CUDA graph), ISP, serving
+paths, one process and data-parallel in a world-1 NCCL group), eval
+forward (and its CUDA graph), ISP, serving
 artifacts, spatial forward, data-parallel picks, asynchronous saves, the
 synthetic demo, apply_noise, the demosaic and the benchmark tools on the
 card (marked ``cuda``; skipped where there is none).
@@ -12,10 +13,12 @@ has the card and torch but not the JAX package's dependencies:
 """
 
 import copy
+import socket
 
 import numpy as onp
 import pytest
 import torch
+import torch.distributed as dist
 
 from eld_tpu_torch import export
 from eld_tpu_torch.config import Config
@@ -27,6 +30,7 @@ from eld_tpu_torch.noise.kernels import kernel_draws, seed_tensor, synthesize_ke
 from eld_tpu_torch.noise.model import noise_core
 from eld_tpu_torch.noise.params import load_camera_params, sample_params_batch
 from eld_tpu_torch.parallel.mesh import rank_rows
+from eld_tpu_torch.parallel.multihost import initialize_multihost
 from eld_tpu_torch.parallel.spatial import make_spatial_forward
 from eld_tpu_torch.train import checkpoints as ckpt
 from eld_tpu_torch.train.engine import Engine
@@ -493,3 +497,74 @@ def test_captured_eval_forward_equals_the_eager_forward(cuda_device, arch, chop,
     assert graph_replays(fwd) == 3 and eager.graphs == {}
     for o, k, w in zip(outs, kept, want):
         assert o.shape == shape and torch.equal(o, w) and torch.equal(o, k)
+
+
+@pytest.fixture
+def nccl_world_one(cuda_device):
+    """A world-1 NCCL group over a free local port, destroyed after the
+    test."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    initialize_multihost(f"127.0.0.1:{port}", 1, 0, backend="nccl")
+    yield
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pooled", [False, True], ids=["per_step", "pooled"])
+@pytest.mark.parametrize("arch", ["unet", "unet_s2d"])
+def test_data_parallel_graph_equals_eager_ddp_in_a_nccl_group(cuda_device, nccl_world_one,
+                                                              tmp_path, arch, pooled):
+    """In a world-1 NCCL group the --multihost Engine's own trainer (per
+    step, or pooled K = 2) replays one CUDA graph with the gradient
+    all-reduce inside from its second call; against the same trainer
+    built with capture=False (eager, through the DDP wrapper) from the
+    same weights and data, every loss and the parameters are equal bit
+    for bit under cudnn.deterministic, across a call at rate 0, and so
+    are state.step and K1's launches."""
+    rng = onp.random.default_rng(9)
+    data = torch.from_numpy(rng.integers(0, 65535, (6, 64, 64, 4), dtype=onp.uint16))
+    pool = {"clean": data.to(cuda_device)}
+    k = 2 if pooled else 1
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for capture in (True, False):
+            eng = Engine(Config(device="cuda", netG=arch, noise="eld", include=4, base_width=8,
+                                batch_size=2, bf16=True, is_train=True, multihost=True,
+                                no_log=True, no_verbose=True, checkpoints_dir=str(tmp_path),
+                                name=f"dp_{capture}"))
+            assert eng._forward is not None and (eng.rank, eng.world) == (0, 1)
+            kw = dict(noise_model="eld", bank=eng.bank, autocast_dtype=torch.bfloat16,
+                      forward=eng._forward, shard=(0, 1), capture=False)
+            if pooled:
+                fn = eng._scan_fn(k) if capture else make_train_scan(
+                    eng.model, batch=2, steps_per_call=k, **kw)
+            else:
+                fn = eng._train_step if capture else make_train_step(eng.model, **kw)
+            before = synthesize_kernel.launches
+            losses = []
+            for i, lr in enumerate(_STEP_RATES):
+                if lr is not None:
+                    set_learning_rate(eng.state, lr)
+                params = [p.detach().clone() for p in eng.model.parameters()]
+                if pooled:
+                    fn(eng.state, pool, [fold_in(3, k * i + j) for j in range(k)])
+                    losses.append(fn.losses.cpu())
+                else:
+                    m = fn(eng.state, {"clean": pool["clean"][i % 5:i % 5 + 2]}, fold_in(3, i))
+                    losses.append(m["Pixel"].cpu())
+                still = all(torch.equal(a, b) for a, b in zip(params, eng.model.parameters()))
+                assert still == (lr == 0.0), (capture, i, lr)
+            runs[capture] = (losses, [p.detach().cpu() for p in eng.model.parameters()],
+                             eng.iterations, synthesize_kernel.launches - before,
+                             graph_replays(fn))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (lg, pg, sg, ng, rg), (le, pe, se, ne, re_) = runs[True], runs[False]
+    n = len(_STEP_RATES)
+    assert (rg, re_) == (n - 1, 0) and sg == se == ng == ne == n * k
+    assert all(torch.equal(a, b) for a, b in zip(lg, le))
+    assert all(torch.equal(a, b) for a, b in zip(pg, pe))

@@ -48,6 +48,7 @@ from eld_tpu_torch.train.steps import (
     rank_noise_seed,
     step_random,
 )
+from tests.test_torch_fake_card import _FakeGraph
 
 LR = 1e-4
 SEEDS = [0, 7, 0x1234_5678_9ABC_DEF0, (1 << 63) + 5, (1 << 64) - 1]
@@ -102,16 +103,6 @@ def test_kernel_wrapper_refuses_a_seed_tensor_it_cannot_read():
 
 # ---- the captured call's host side ------------------------------------------
 
-class _FakeGraph:
-    """Stands in for a captured CUDA graph: counts its replays."""
-
-    def __init__(self):
-        self.replays = 0
-
-    def replay(self):
-        self.replays += 1
-
-
 def _scan_state():
     model = _unet()
     return create_train_state(model, lr=LR)
@@ -144,6 +135,27 @@ def test_seed_buffer_and_slots_hold_the_eager_loops_seeds():
     slots = [g for rng in call.slots for g in rng.generators()]
     call._load_seeds([s + 1 for s in seeds])
     assert [g for rng in call.slots for g in rng.generators()] == slots
+
+
+@pytest.mark.parametrize("plain", [False, True], ids=["kernel", "plain"])
+def test_a_ranks_call_seeds_its_noise_with_the_ranks_seed(plain):
+    """Under data parallelism a call's noise is its rank's: element j of
+    the seed buffer (or the plain noise's generator j) holds
+    rank_noise_seed(seeds[j], rank, world), as the eager path seeds it,
+    so two ranks draw different noise; their slots (the global batch's
+    parameters, picks and masks) are seeded alike."""
+    k, mask = 3, (1 << 64) - 1
+    seeds = [fold_in(2018, 40 + j) for j in range(k)]
+    calls = [_GraphCall(None, torch.device("cpu"), bind=_binding, slots=k, steps=k,
+                        plain_noise=plain, shard=(r, 2)) for r in range(2)]
+    for r, call in enumerate(calls):
+        call._load_seeds(seeds)
+        want = [rank_noise_seed(s, r, 2) for s in seeds]
+        assert [int(v) & mask for v in call.seeds] == want
+        assert [g.initial_seed() for g in call.noise] == (want if plain else [])
+        assert [[g.initial_seed() for g in rng.generators()] for rng in call.slots] == [
+            [fold_in(s, p) for p in (0, 2, 3)] for s in seeds]
+    assert not set(calls[0].seeds.tolist()) & set(calls[1].seeds.tolist())
 
 
 def test_a_replay_advances_step_and_launches_by_k_and_returns_copies():

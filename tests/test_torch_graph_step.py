@@ -3,10 +3,10 @@ side of their graph path, rehearsed on the CPU.
 
 Nothing here can capture a CUDA graph (there is no card).  The
 ``fake_card`` fixture routes CPU tensors down the graph path with
-stand-ins for the card's pieces: a graph that counts its replays and
-remembers its registered generators (``test_torch_graph.py``'s
-``_FakeGraph``, extended), a capture that runs the call's Python for
-real on the CPU, and streams that do nothing.  So the first call of a shape runs eagerly, the
+stand-ins for the card's pieces (``test_torch_fake_card.py``): a graph
+that counts its replays and remembers its registered generators, a
+capture that runs the call's Python for real on the CPU, and streams
+that do nothing.  So the first call of a shape runs eagerly, the
 second "captures" (executing the call once, on the graph's own input
 buffers and draws) and replays, and a replay does nothing.  What the card
 adds (that a replay recomputes, bit for bit) is held by
@@ -17,7 +17,6 @@ exact (the same ops on the same draws); against eld_tpu, float32 on the
 CPU as in ``test_torch_train``.
 """
 
-import contextlib
 import copy
 
 import jax
@@ -43,7 +42,8 @@ from eld_tpu_torch.train.state import (
     set_learning_rate,
 )
 from eld_tpu_torch.train.steps import (
-    DATA_PARALLEL,
+    EAGER_ARM,
+    HOST_COLLECTIVES,
     SPATIAL,
     StepRandom,
     fold_in,
@@ -55,7 +55,7 @@ from eld_tpu_torch.train.steps import (
     say_eager,
     step_random,
 )
-from tests.test_torch_graph import _FakeGraph
+from tests.test_torch_fake_card import install_fake_card
 from tests.test_torch_train import _jax_state, _paired_batches, assert_params_close
 
 LR = 1e-4
@@ -71,70 +71,13 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-class _RecordingGraph(_FakeGraph):
-    """The pooled call's stand-in, plus the generators registered with it
-    and a snapshot of the runner's input buffers at each replay."""
-
-    made = []
-
-    def __init__(self):
-        super().__init__()
-        self.generators, self.seen = [], []
-        self.call = None
-        _RecordingGraph.made.append(self)
-
-    def register_generator_state(self, gen):
-        self.generators.append(gen)
-
-    def replay(self):
-        super().replay()
-        if self.call is not None:
-            self.seen.append({k: v.clone() for k, v in self.call.inputs.items()})
-
-
-class _FakeStream:
-    def wait_stream(self, other):
-        pass
-
-
 @pytest.fixture
 def fake_card(monkeypatch):
-    """CPU tensors take the graph path, with the stand-ins above; K1's
-    wrapper counts its (CPU, plain) calls as launches.  Yields the
-    capture's record: the memory pool of each capture."""
-    real_captures, real_kernel = steps._captures, steps.synthesize_kernel
-    pools = []
-
-    def counting_kernel(*args, **kw):
-        counting_kernel.launches += 1
-        return real_kernel(*args, **kw)
-
-    counting_kernel.launches = 0
-
-    @contextlib.contextmanager
-    def capture(graph, pool=None, capture_error_mode=None):
-        pools.append(pool)
-        yield
-
-    real_capture = steps._GraphCall._capture
-
-    def capture_and_link(self, state, inputs):
-        real_capture(self, state, inputs)
-        self.graph.call = self
-
-    _RecordingGraph.made = []
-    monkeypatch.setattr(steps, "_captures",
-                        lambda device, *a: real_captures(torch.device("cuda"), *a))
-    monkeypatch.setattr(steps, "synthesize_kernel", counting_kernel)
-    monkeypatch.setattr(steps._GraphCall, "_capture", capture_and_link)
-    monkeypatch.setattr(torch.cuda, "CUDAGraph", _RecordingGraph)
-    monkeypatch.setattr(torch.cuda, "graph", capture)
-    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: object())
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _FakeStream())
-    monkeypatch.setattr(torch.cuda, "Stream", lambda device=None: _FakeStream())
-    monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
-    monkeypatch.setattr(torch.Tensor, "record_stream", lambda self, s: None)
-    yield pools
+    """CPU tensors take the graph path, with ``test_torch_fake_card``'s
+    stand-ins (a replay does nothing); K1's wrapper counts its (CPU,
+    plain) calls as launches.  Yields the capture's record: the memory
+    pool of each capture."""
+    yield install_fake_card(monkeypatch.setattr)
 
 
 def _unet(seed=0, width=4, arch="unet"):
@@ -294,38 +237,90 @@ def test_a_loaded_optimizer_state_or_replaced_parameter_drops_the_step_graph(fak
 
 
 def test_data_parallel_step_stays_eager_and_says_so_once(fake_card, capsys, monkeypatch):
-    """Under a DistributedDataParallel ``forward`` (any wrapper) the step
-    stays eager on the card and says so once, on stderr; under ``shard``
-    over several ranks it stays eager for the same reason; so does the
-    pooled trainer.  Without either the step captures and says nothing.
-    (The ranks' all-reduce is stubbed: one process stands in for rank 0
-    or 1.)"""
-    monkeypatch.setattr(steps, "global_mean", lambda values, world=1: values)
+    """Under data parallelism (a DistributedDataParallel ``forward``, any
+    wrapper, or ``shard`` over several ranks) the step captures on the
+    card when the group is NCCL's (the group and its backend query
+    patched), and stays eager without one or with ``capture=False``, saying so once
+    on stderr with its reason; so does the pooled trainer.  Without data
+    parallelism the step captures and says nothing.  (The ranks'
+    collectives are stubbed: one process stands in for rank 0 or 1.)"""
+    monkeypatch.setattr(steps.dist, "all_reduce", lambda tensor, *a, **kw: None)
     steps._SAID.clear()
-    said = "[i] {}: eager launches on the card " + DATA_PARALLEL
+    said = "[i] {}: eager launches on the card {}"
     state = create_train_state(_unet(), lr=LR)
-    step = _synthetic(state.model, forward=torch.nn.Sequential(state.model))
+    wrapper = torch.nn.Sequential(state.model)
     batch = {"clean": _u16((2, 16, 16, 4), 1)}
-    for i in range(3):
-        step(state, batch, i)
-    assert step.graphs == {} and state.step == 3
-    assert capsys.readouterr().err.count(said.format("train step")) == 1
-    steps._SAID.clear()
-    ranked = _synthetic(state.model, shard=(0, 2))
-    for i in range(2):
-        ranked(state, batch, i)
-    assert ranked.graphs == {} and state.step == 5
-    assert capsys.readouterr().err.count(said.format("train step")) == 1
-    pooled = make_train_scan(state.model, shard=(1, 2), batch=2, steps_per_call=1)
     pool = {"input": _u16((3, 16, 16, 4), 2), "target": _u16((3, 16, 16, 4), 3)}
-    for i in range(2):
-        pooled(state, pool, [i])
-    assert pooled.graphs == {} and state.step == 7
-    assert capsys.readouterr().err.count(said.format("pooled trainer")) == 1
+    for nccl in (False, True):
+        if nccl:  # a group whose backend query says NCCL
+            monkeypatch.setattr(steps.dist, "is_initialized", lambda: True)
+            monkeypatch.setattr(steps.dist, "get_backend", lambda group=None: "nccl")
+        for capture in (True, False):
+            eager = not (nccl and capture)
+            why = HOST_COLLECTIVES if capture else EAGER_ARM
+            steps._SAID.clear()
+            wrapped = _synthetic(state.model, forward=wrapper, capture=capture)
+            ranked = _synthetic(state.model, shard=(0, 2), capture=capture)
+            pooled = make_train_scan(state.model, shard=(1, 2), batch=2, steps_per_call=1,
+                                     capture=capture)
+            for i in range(3):
+                wrapped(state, batch, i)
+                ranked(state, batch, i)
+                pooled(state, pool, [i])
+            for fn in (wrapped, ranked, pooled):
+                assert (fn.graphs == {}) == eager and graph_replays(fn) == (0 if eager else 2)
+            err = capsys.readouterr().err
+            for what in ("train step", "pooled trainer"):
+                assert err.count(said.format(what, why)) == eager, (nccl, capture, err)
     plain = _synthetic(state.model)
     for i in range(2):
         plain(state, batch, i)
     assert len(plain.graphs) == 1 and capsys.readouterr().err == ""
+
+
+@pytest.mark.parametrize("pooled", [False, True], ids=["per_step", "pooled"])
+def test_data_parallel_graph_all_reduces_grads_each_step_and_losses_each_call(
+        fake_card, monkeypatch, pooled):
+    """At a stubbed world 2 over an NCCL group (the group and its backend
+    query patched, the collective counting and leaving its tensor as it
+    is), the graph arm's eager call and its capture each call
+    ``dist.all_reduce`` once per step for the gradients (NCCL's average
+    of the call's flat f32 buffer, every parameter's gradient in it) and
+    once per call for the losses (the capture is replayed at once); a
+    replay runs no Python and calls none."""
+    calls = []
+
+    def all_reduce(tensor, op=steps.dist.ReduceOp.SUM, *a, **kw):
+        calls.append((tensor.dtype, tensor.numel(), tensor.data_ptr(), op))
+
+    monkeypatch.setattr(steps.dist, "all_reduce", all_reduce)
+    monkeypatch.setattr(steps.dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(steps.dist, "get_backend", lambda group=None: "nccl")
+    state = create_train_state(_unet(), lr=LR)
+    k = 3 if pooled else 1
+    if pooled:
+        fn = make_train_scan(state.model, noise_model="eld", bank=_bank(), shard=(1, 2),
+                             batch=4, steps_per_call=k)
+        pool = {"clean": _u16((6, 16, 16, 4), 1)}
+        run = lambda c: fn(state, pool, [fold_in(3, k * c + j) for j in range(k)])  # noqa: E731
+    else:
+        fn = _synthetic(state.model, shard=(1, 2))
+        run = lambda c: fn(state, {"clean": _u16((2, 16, 16, 4), c)}, fold_in(3, c))  # noqa: E731
+    n_grads = sum(p.numel() for p in state.model.parameters())
+    for c in range(4):
+        before = len(calls)
+        run(c)
+        made = calls[before:]
+        if c >= 2:  # replays
+            assert made == []
+            continue
+        call = _only(fn)
+        grads = made[:-1]
+        assert len(grads) == k and made[-1][1] == k
+        assert all(g == (torch.float32, n_grads, call.flat.data_ptr(), steps.dist.ReduceOp.AVG)
+                   for g in grads)
+        assert made[-1][3] == steps.dist.ReduceOp.SUM
+    assert graph_replays(fn) == 3 and state.step == 4 * k
 
 
 @pytest.mark.parametrize("arch", ["unet", "unet_s2d"])
@@ -481,14 +476,16 @@ def test_engine_trains_and_evaluates_through_graphs_and_drops_them_on_load(fake_
 
 # ---- what stays eager says so once -----------------------------------------------
 
-@pytest.mark.parametrize("what,why", [("train step", DATA_PARALLEL),
-                                      ("pooled trainer", DATA_PARALLEL),
+@pytest.mark.parametrize("what,why", [("train step", HOST_COLLECTIVES),
+                                      ("pooled trainer", HOST_COLLECTIVES),
+                                      ("train step", EAGER_ARM),
+                                      ("pooled trainer", EAGER_ARM),
                                       ("eval forward", SPATIAL)])
 def test_each_eager_path_says_so_once(capsys, what, why):
-    """Each path that stays eager on the card (data parallelism, the
-    spatial forward) says so on stderr once per process, whatever the
-    number of calls; on the CPU, or with ``capture=False``, nothing is
-    said."""
+    """Each path that stays eager on the card (data parallelism over gloo
+    or with ``capture=False``, the spatial forward) says so on stderr once
+    per process, whatever the number of calls; on the CPU nothing is
+    said, and without a reason ``capture`` decides, silently."""
     steps._SAID.clear()
     card, cpu = torch.device("cuda"), torch.device("cpu")
     for _ in range(3):
@@ -496,6 +493,7 @@ def test_each_eager_path_says_so_once(capsys, what, why):
     assert not steps._captures(cpu, True, why, what)
     assert not steps._captures(card, False, why, what)
     assert steps._captures(card, True, None, what) and not steps._captures(cpu, True, None, what)
+    assert not steps._captures(card, False, None, what)
     err = capsys.readouterr().err
     assert err == f"[i] {what}: eager launches on the card {why}\n"
     say_eager(what, why)

@@ -6,10 +6,14 @@ Multi-process cases run gloo ranks as child processes of this file,
 
     python tests/test_torch_parallel.py SESSION RANK WORLD PORT WORKDIR
 
-one session of two ranks and one of a single rank, started together by a
+two sessions of two ranks and one of a single rank, started together by a
 module fixture that kills them at their timeout, so a hung collective fails
 the tests that read the session and does not stall the run.  Each rank
-saves what it saw to WORKDIR/rank<R>.pt for the tests to compare.
+saves what it saw to WORKDIR/rank<R>.pt for the tests to compare.  The
+ranks of the "graph" session take the CUDA-graph path of the
+data-parallel trainers on the CPU: ``test_torch_fake_card``'s stand-in
+graph replays by rerunning the captured call, and the backend query is
+patched to say NCCL, so their gloo collectives stand in for the card's.
 """
 
 import dataclasses
@@ -61,8 +65,17 @@ from eld_tpu_torch.parallel.spatial import make_spatial_forward, spatial_halo
 from eld_tpu_torch.tools import test_sid
 from eld_tpu_torch.train import checkpoints as ckpt
 from eld_tpu_torch.train.engine import Engine
+from eld_tpu_torch.train import steps
 from eld_tpu_torch.train.state import create_train_state
-from eld_tpu_torch.train.steps import fold_in, pick_batch, rank_noise_seed
+from eld_tpu_torch.train.steps import (
+    fold_in,
+    graph_replays,
+    make_train_scan,
+    make_train_step,
+    pick_batch,
+    rank_noise_seed,
+)
+from tests.test_torch_fake_card import _ReplayingGraph, install_fake_card
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LR = 1e-4
@@ -219,11 +232,80 @@ def _one_rank(workdir):
     return res
 
 
+def _eager_trainers(eng):
+    """The Engine's per-step trainer and its pooled trainer of K = 2 built
+    with capture=False: the eager arm, through the DDP wrapper."""
+    cfg, shard = eng.cfg, (eng.rank, eng.world)
+    noise = cfg.noise or None
+    eng._train_step = make_train_step(eng.model, noise_model=noise, bank=eng.bank,
+                                      forward=eng._forward, shard=shard, capture=False)
+    eng._train_scans[(2, cfg.batch_size)] = make_train_scan(
+        eng.model, noise_model=noise, bank=eng.bank, batch=cfg.batch_size, steps_per_call=2,
+        forward=eng._forward, shard=shard, capture=False)
+
+
+def _collectives(fn):
+    """The gloo all-reduces ``fn()`` issues, counted by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    return sum(e.count for e in prof.key_averages() if e.key == "gloo:all_reduce")
+
+
+def _graph_ranks(rank, workdir):
+    """The data-parallel trainers on the graph path (a stand-in graph that
+    replays by rerunning the call, the backend query saying NCCL) against
+    the same Engines' trainers built with capture=False, from the same
+    weights: a paired per-step epoch (as ``_two_ranks``'), two synthetic
+    per-step epochs and a pooled epoch of three calls of K = 2 (as
+    ``_two_ranks``' pooled one, twice as long)."""
+    install_fake_card(setattr, _ReplayingGraph)
+    steps.nccl_group = lambda: True
+    res = {}
+    for arm in ("graph", "eager"):
+        paired = Engine(_cfg(workdir, f"paired_{arm}", multihost=True, is_train=True, noise="",
+                             batch_size=4))
+        paired.model.load_state_dict(_torch_unet().state_dict())
+        synthetic = Engine(_pool_cfg(workdir, f"syn_{arm}", multihost=True))
+        pooled = Engine(_pool_cfg(workdir, f"pool_{arm}", multihost=True))
+        if arm == "eager":
+            for eng in (paired, synthetic, pooled):
+                _eager_trainers(eng)
+        paired.train(Loader(_PairedDataset(), batch_size=4, shuffle=True, num_workers=0, seed=5,
+                            drop_last=True, shard=host_shard()))
+        for _ in range(2):
+            synthetic.train(Loader(_CleanDataset(), batch_size=4, shuffle=True, num_workers=0,
+                                   seed=5, drop_last=True, shard=host_shard()))
+        pool = _pool()
+        pooled.train_pool(pool, steps=6, steps_per_call=2)
+        trainers = (paired._train_step, synthetic._train_step, pooled._scan_fn(2))
+        res[arm] = {"paired_params": _cpu_state(paired.model),
+                    "paired_pixel": [h[1]["Pixel"] for h in paired.history],
+                    "syn_params": _cpu_state(synthetic.model),
+                    "syn_pixel": [h[1]["Pixel"] for h in synthetic.history],
+                    "pool_params": _cpu_state(pooled.model),
+                    "pool_history": [(h[0], h[1]) for h in pooled.history],
+                    "replays": [graph_replays(fn) for fn in trainers]}
+        if arm == "graph":
+            # the noise seeds of the last step and call; then a replay's
+            # collectives: one for the gradients per step, one for the
+            # losses per call (DDP's hooks issue none)
+            res["seeds"] = [next(iter(fn.graphs.values())).seeds.tolist() for fn in trainers[1:]]
+            rows = torch.from_numpy(onp.stack([it["clean"] for it in _CleanDataset().items[:2]]))
+            res["collectives"] = [
+                _collectives(lambda: trainers[1](synthetic.state, {"clean": rows}, 5)),
+                _collectives(lambda: trainers[2](pooled.state, pool, [5, 6]))]
+            res["replays_after"] = [graph_replays(fn) for fn in trainers[1:]]
+    return res
+
+
 def _rank_main(session, rank, world, port, workdir):
     torch.set_num_threads(1)
     shard = initialize_multihost(f"127.0.0.1:{port}", world, rank, backend="gloo")
     res = {"shard": shard}
-    res.update(_two_ranks(rank, workdir) if session == "two" else _one_rank(workdir))
+    res.update({"two": _two_ranks, "graph": _graph_ranks}[session](rank, workdir)
+               if world == 2 else _one_rank(workdir))
     torch.save(res, os.path.join(workdir, f"rank{rank}.pt"))
     dist.destroy_process_group()
 
@@ -281,11 +363,12 @@ def _finish(session):
 
 @pytest.fixture(scope="module", autouse=True)
 def started(tmp_path_factory):
-    """Both sessions, started before the module's first test so that the
+    """The sessions, started before the module's first test so that the
     one-process tests run while the ranks work; no rank outlives the
     module."""
     root = str(tmp_path_factory.mktemp("ranks"))
     runs = [_start("two", 2, os.path.join(root, "two")),
+            _start("graph", 2, os.path.join(root, "graph")),
             _start("one", 1, os.path.join(root, "one"))]
     yield runs
     for run in runs:
@@ -500,7 +583,29 @@ def test_refusals_on_two_ranks(sessions):
         assert ref["spatial"].startswith("NotImplementedError: spatially-sharded"), ref
 
 
-def test_data_parallel_epoch_matches_jax_mesh_data_2(sessions, tmp_path, monkeypatch):
+@pytest.fixture(scope="module")
+def jax_mesh_data_2(tmp_path_factory):
+    """eld_tpu's Engine with mesh_data=2 on the virtual mesh, from
+    ``_torch_unet``'s weights, after one epoch of the paired batches that
+    the ranks' data-parallel epochs see: (the Engine, its metrics)."""
+    def init_state(model, key, sample_shape, lr=1e-4, beta1=0.9, weight_decay=0.0):
+        params = jax.tree_util.tree_map(jnp.asarray, state_dict_to_flax(_torch_unet().state_dict()))
+        tx = jax_make_optimizer(lr, beta1, weight_decay)
+        return JaxTrainState(params=params, opt_state=tx.init(params), step=jnp.zeros((), jnp.int32),
+                             epoch=jnp.zeros((), jnp.int32), tx=tx)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_engine_mod, "create_train_state", init_state)
+        jeng = jax_engine_mod.Engine(JaxConfig(mesh_data=2, noise="", is_train=True,
+                                               base_width=4, batch_size=4, no_log=True,
+                                               no_verbose=True,
+                                               checkpoints_dir=str(tmp_path_factory.mktemp("j"))))
+        ref = jeng.train(JaxLoader(_PairedDataset(), batch_size=4, shuffle=True, num_workers=0,
+                                   seed=5, drop_last=True))
+    return jeng, ref
+
+
+def test_data_parallel_epoch_matches_jax_mesh_data_2(sessions, jax_mesh_data_2):
     """Two gloo ranks train one epoch of paired batches (each its rows
     rank::2 of every global batch of 4) and end bitwise equal; against
     eld_tpu's Engine with mesh_data=2 on the virtual mesh, from the same
@@ -512,19 +617,8 @@ def test_data_parallel_epoch_matches_jax_mesh_data_2(sessions, tmp_path, monkeyp
     assert ranks[0]["dp_pixel"] == ranks[1]["dp_pixel"] and len(ranks[0]["dp_pixel"]) == 3
     assert ranks[0]["dp_rows"] != ranks[1]["dp_rows"]
 
-    def init_state(model, key, sample_shape, lr=1e-4, beta1=0.9, weight_decay=0.0):
-        params = jax.tree_util.tree_map(jnp.asarray, state_dict_to_flax(_torch_unet().state_dict()))
-        tx = jax_make_optimizer(lr, beta1, weight_decay)
-        return JaxTrainState(params=params, opt_state=tx.init(params), step=jnp.zeros((), jnp.int32),
-                             epoch=jnp.zeros((), jnp.int32), tx=tx)
-
-    monkeypatch.setattr(jax_engine_mod, "create_train_state", init_state)
-    jeng = jax_engine_mod.Engine(JaxConfig(mesh_data=2, noise="", is_train=True, base_width=4,
-                                           batch_size=4, no_log=True, no_verbose=True,
-                                           checkpoints_dir=str(tmp_path)))
+    jeng, ref = jax_mesh_data_2
     assert jeng.mesh.shape["data"] == 2
-    ref = jeng.train(JaxLoader(_PairedDataset(), batch_size=4, shuffle=True, num_workers=0, seed=5,
-                               drop_last=True))
     assert jeng.iterations == 3
     onp.testing.assert_allclose(onp.mean(ranks[0]["dp_pixel"]), ref["Pixel"], rtol=1e-5)
     assert_params_close(flax_to_state_dict(jeng.state.params), ranks[0]["dp_params"], steps=3)
@@ -553,23 +647,18 @@ def test_merged_eval_is_identical_on_both_ranks(sessions, tmp_path):
     assert len(ranks[0]["runs"]) == 1
 
 
-def test_pooled_two_ranks_equal_a_single_process_replay(sessions):
-    """train_pool on two ranks (3 steps, calls of 2 and 1, global batch 4)
-    against one process that picks each global batch, samples its noise
-    parameters, noises rank r's rows 2r..2r+1 under the seed
+def _pooled_replay(n_steps):
+    """One process replays a two-rank pooled run of ``n_steps`` at global
+    batch 4 from seed 9's weights: it picks each global batch, samples its
+    noise parameters, noises rank r's rows 2r..2r+1 under the seed
     fold_in(fold_in(step seed, 1), r) on the plain path, and steps on the
-    whole batch.  Both ranks report the same global losses."""
-    ranks, _ = _ranks(sessions, "two")
-    for k, v in ranks[0]["pool_params"].items():
-        assert torch.equal(v, ranks[1]["pool_params"][k]), k
-    assert ranks[0]["pool_history"] == ranks[1]["pool_history"]
-
+    whole batch.  Returns the parameters and the losses."""
     torch.manual_seed(9)
     model = build_arch("unet", 4, 4, base_width=4, skip_mode="split")
     state = create_train_state(model)
     bank = load_camera_params(include=4)
     pool, losses = _pool(), []
-    for j in range(3):
+    for j in range(n_steps):
         seed = fold_in(9, j)
         clean = pick_batch(pool, 4, seed)["clean"]
         params = sample_params_batch(torch.Generator().manual_seed(fold_in(seed, 0)), bank, 4)
@@ -583,10 +672,90 @@ def test_pooled_two_ranks_equal_a_single_process_replay(sessions):
         loss.backward()
         state.optimizer.step()
         losses.append(float(loss.detach()))
-    assert_params_close(_cpu_state(model), ranks[0]["pool_params"], steps=3)
+    return _cpu_state(model), losses
+
+
+def test_pooled_two_ranks_equal_a_single_process_replay(sessions):
+    """train_pool on two ranks (3 steps, calls of 2 and 1, global batch 4)
+    against one process that picks each global batch, samples its noise
+    parameters, noises rank r's rows 2r..2r+1 under the seed
+    fold_in(fold_in(step seed, 1), r) on the plain path, and steps on the
+    whole batch.  Both ranks report the same global losses."""
+    ranks, _ = _ranks(sessions, "two")
+    for k, v in ranks[0]["pool_params"].items():
+        assert torch.equal(v, ranks[1]["pool_params"][k]), k
+    assert ranks[0]["pool_history"] == ranks[1]["pool_history"]
+
+    params, losses = _pooled_replay(3)
+    assert_params_close(params, ranks[0]["pool_params"], steps=3)
     (_, first), (_, second) = ranks[0]["pool_history"]
     onp.testing.assert_allclose([first["Pixel"], first["PixelLast"], second["Pixel"]],
                                 [onp.mean(losses[:2]), losses[1], losses[2]], rtol=1e-5)
+
+
+# ---- two ranks on the graph path (the "graph" session) -----------------------
+
+def test_graph_path_on_two_ranks_equals_eager_ddp_bit_for_bit(sessions):
+    """On each rank the data-parallel trainers' graph path (the stand-in
+    replaying by rerunning the call, the gradients averaged by one
+    all-reduce of the call's flat buffer) trains exactly as capture=False's
+    eager DDP path from the same weights: a paired per-step epoch (2 of
+    its 3 steps replays), two synthetic per-step epochs (3 of 4) and a
+    pooled epoch of three calls of K = 2 (2 of 3): every reported loss and
+    the parameters.  The paired epoch also equals the "two" session's
+    Engine bit for bit, and both ranks end equal.  A replay issues one
+    gloo all-reduce a step for the gradients and one a call for the
+    losses: DDP's own hooks add none."""
+    ranks, _ = _ranks(sessions, "graph")
+    eager_two, _ = _ranks(sessions, "two")
+    for res in ranks:
+        g, e = res["graph"], res["eager"]
+        assert g["replays"] == [2, 3, 2] and e["replays"] == [0, 0, 0]
+        assert g["paired_pixel"] == e["paired_pixel"] and g["syn_pixel"] == e["syn_pixel"]
+        assert g["pool_history"] == e["pool_history"] and len(g["pool_history"]) == 3
+        for key in ("paired_params", "syn_params", "pool_params"):
+            for name, v in e[key].items():
+                assert torch.equal(v, g[key][name]), (key, name)
+                assert torch.equal(v, ranks[0]["graph"][key][name]), (key, name)
+        for name, v in eager_two[0]["dp_params"].items():
+            assert torch.equal(v, g["paired_params"][name]), name
+        assert res["collectives"] == [1 + 1, 2 + 1]
+        assert res["replays_after"] == [4, 3]
+
+
+def test_graph_path_on_two_ranks_matches_jax_mesh_data_2(sessions, jax_mesh_data_2):
+    """The graph path's paired epoch on two ranks against eld_tpu's
+    mesh_data=2 Engine, by test_data_parallel_epoch_matches_jax_mesh_data_2's
+    method and tolerance."""
+    ranks, _ = _ranks(sessions, "graph")
+    jeng, ref = jax_mesh_data_2
+    got = ranks[0]["graph"]
+    assert len(got["paired_pixel"]) == jeng.iterations == 3
+    onp.testing.assert_allclose(onp.mean(got["paired_pixel"]), ref["Pixel"], rtol=1e-5)
+    assert_params_close(flax_to_state_dict(jeng.state.params), got["paired_params"], steps=3)
+
+
+def test_graph_path_seeds_each_ranks_noise_and_equals_a_single_process_replay(sessions):
+    """A captured data-parallel call seeds rank r's noise with
+    rank_noise_seed(step seed, r, 2): the last per-step step's and the
+    last pooled call's seed buffers hold those seeds, different on the two
+    ranks; and the pooled epoch (6 steps) equals a one process replay that
+    noises each rank's rows under its own seed, as
+    test_pooled_two_ranks_equal_a_single_process_replay holds the eager
+    ranks."""
+    ranks, _ = _ranks(sessions, "graph")
+    for r, res in enumerate(ranks):
+        want = [[rank_noise_seed(fold_in(9, 3), r, 2)],
+                [rank_noise_seed(fold_in(9, j), r, 2) for j in (4, 5)]]
+        assert [[v & ((1 << 64) - 1) for v in s] for s in res["seeds"]] == want
+    assert ranks[0]["seeds"] != ranks[1]["seeds"]
+    params, losses = _pooled_replay(6)
+    got = ranks[0]["graph"]
+    assert_params_close(params, got["pool_params"], steps=6)
+    onp.testing.assert_allclose([h["Pixel"] for _, h in got["pool_history"]],
+                                [onp.mean(losses[2 * c:2 * c + 2]) for c in range(3)], rtol=1e-5)
+    assert [h["PixelLast"] for _, h in got["pool_history"]] == pytest.approx(losses[1::2],
+                                                                            rel=1e-5)
 
 
 def test_world_one_group_equals_no_group_bit_for_bit(sessions):
