@@ -137,6 +137,24 @@ Phases, one line or block of output each; any failure exits non-zero:
      all-reduce kernel, K1 and a convolution; (d) ms a pooled and a
      per-step step in turns for the three arms, unet and unet_s2d at
      batch 8, and wall against device-busy ms of one profiled call each;
+ 13. eld_tpu's single-process data axis, an entry point's own launch of
+     its ranks (eld_tpu_torch/parallel/launch.py): (a) ``launch`` of one
+     NCCL rank on cuda:0 (torchrun's agent, the rendezvous, the rank's
+     group bound to its card) running train_syn over phase 12's store,
+     --scan 4 for 2 epochs under cudnn.deterministic: every loss and the
+     parameters equal phase 12a's in-process run without a group, bit
+     for bit, K1 launches equal the rank's 16 steps, 3 replays; (b)
+     train_syn --mesh_data N+1 refused naming cuda:N before any child
+     starts, a fresh process's plan leaving CUDA uninitialized, -1 on a
+     one-card host run in this process without a group, and a rank that
+     fails making ``launch`` raise with its rank while this process goes
+     on; (c) from the launch call to the rank's target, to the end of its
+     first pooled call and of its capture, and its ms a pooled step over
+     4 replays beside phase 12d's data-parallel graph; (d), on a host of
+     N >= 2 cards and not run by ``main``: --mesh_data -1 through the
+     entry point, N launched ranks at 8 rows each on their own cards,
+     bitwise equal, against one launched rank, and --device cuda:1
+     --mesh_data 2 on cuda:1 and cuda:2;
 and prints the kernels' JSON line, the card line, and a last JSON line
 {"ok": true, "device": {...}}.  It imports nothing of JAX.
 """
@@ -571,7 +589,7 @@ def phase3(card):
         argv = ["--traindir", tmp, "--checkpoints_dir", os.path.join(tmp, "ck"),
                 "--name", "smoke", "--noise", "eld", "--include", "4", "-b", "8", "--bf16",
                 "--epochs", "3", "--no-log", "--no-verbose", "--seed", str(SEED),
-                "--nThreads", "4", "--device", "cuda", "--scan", "0"]
+                "--nThreads", "4", "--device", "cuda", "--mesh_data", "1", "--scan", "0"]
         synthesize_kernel.launches = 0
         t0 = time.perf_counter()
         engine = train_syn.main(argv)
@@ -724,7 +742,7 @@ def phase4(card, tmp, step_ms):
                 "--checkpoints_dir", os.path.join(tmp, "ck"), "--name", arch, "--netG", arch,
                 "--noise", "eld", "--include", "4", "-b", "8", "--bf16",
                 "--epochs", str(epochs), "--eval_every", str(epochs), "--no-verbose",
-                "--seed", str(SEED), "--nThreads", "4", "--device", "cuda"]
+                "--seed", str(SEED), "--nThreads", "4", "--device", "cuda", "--mesh_data", "1"]
         synthesize_kernel.launches = 0
         t0 = time.perf_counter()
         engine = train_syn.main(argv)
@@ -849,7 +867,8 @@ def phase5(card, tmp, engines):
         t0 = time.perf_counter()
         results[device] = test_sid.main([
             "--datadir", sid, "--pairs", pairs_file, "--model_path", ckpt, "--device", device,
-            "--checkpoints_dir", os.path.join(tmp, "ck_eval"), "--no-log", "--no-verbose"])
+            "--mesh_data", "1", "--checkpoints_dir", os.path.join(tmp, "ck_eval"), "--no-log",
+            "--no-verbose"])
         print(f"[5b] test_sid on {device}: {time.perf_counter() - t0:.2f} s; " + "; ".join(
             f"ratio {r}: " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(m.items()))
             for r, m in sorted(results[device].items())), flush=True)
@@ -874,8 +893,8 @@ def phase5(card, tmp, engines):
     t0 = time.perf_counter()
     eld = test_eld.main(["--datadir", os.path.join(tmp, "eld"), "--include", "4",
                          "--suffix", ".npz", "--scenes", "1", "--chop", "--model_path", ckpt,
-                         "--device", "cuda", "--checkpoints_dir", os.path.join(tmp, "ck_eval"),
-                         "--no-log", "--no-verbose"])
+                         "--device", "cuda", "--mesh_data", "1", "--checkpoints_dir",
+                         os.path.join(tmp, "ck_eval"), "--no-log", "--no-verbose"])
     check(sorted(eld) == [("SonyA7S2", "x100"), ("SonyA7S2", "x200")], f"test_eld: {eld}")
     for key, res in sorted(eld.items()):
         check(all(math.isfinite(v) for v in res.values()), f"test_eld {key}: {res}")
@@ -1187,8 +1206,8 @@ def phase6d(card, tmp, p5):
     for device in ("cuda", "cpu"):
         results[device] = test_sid.main([
             "--datadir", p5["sid"], "--pairs", p5["pairs"], "--model_path", p5["ckpt"],
-            "--device", device, "--stage_eval", "srgb", "--crf", "--checkpoints_dir",
-            os.path.join(tmp, "ck_srgb"), "--no-log", "--no-verbose"])
+            "--device", device, "--mesh_data", "1", "--stage_eval", "srgb", "--crf",
+            "--checkpoints_dir", os.path.join(tmp, "ck_srgb"), "--no-log", "--no-verbose"])
     for ratio in (100, 300):
         got, want = results["cuda"][ratio], results["cpu"][ratio]
         check(all(math.isfinite(v) for v in got.values()), f"sRGB test_sid {ratio}: {got}")
@@ -1254,7 +1273,7 @@ def phase6e(card, tmp):
     batch = 8
     common = ["--traindir", dest, "--evaldir", os.path.join(tmp, "no_eval"), "-b", str(batch),
               "--bf16", "--epochs", "1", "--no-log", "--no-verbose", "--seed", str(SEED),
-              "--nThreads", "4", "--device", "cuda", "--include", "4"]
+              "--nThreads", "4", "--device", "cuda", "--mesh_data", "1", "--include", "4"]
     runs = {"train_real": (train_real.main, ["--checkpoints_dir", os.path.join(tmp, "ck_r")]),
             "offline_noise": (train_syn.main, ["--offline_noise", "--checkpoints_dir",
                                                os.path.join(tmp, "ck_o")]),
@@ -1417,7 +1436,8 @@ def phase7a(card, tmp, traindir, pool):
 
     common = ["--traindir", traindir, "--evaldir", os.path.join(tmp, "no_eval"), "--noise",
               "eld", "--include", "4", "-b", "8", "--bf16", "--epochs", "1", "--no-log",
-              "--no-verbose", "--seed", str(SEED), "--nThreads", "4", "--device", "cuda"]
+              "--no-verbose", "--seed", str(SEED), "--nThreads", "4", "--device", "cuda",
+              "--mesh_data", "1"]
     runs, launches = {}, 0
     for tag in ("plain", "multihost"):
         argv = common + ["--checkpoints_dir", os.path.join(tmp, f"ck7a_{tag}")]
@@ -1642,8 +1662,8 @@ def phase7c(card, tmp, engines, ckpt_path):
     try:
         test_eld.main(["--datadir", os.path.join(tmp, "eld"), "--include", "4", "--suffix",
                        ".npz", "--scenes", "1", "--mesh_spatial", "2", "--model_path", ckpt_path,
-                       "--device", "cuda", "--checkpoints_dir", os.path.join(tmp, "ck7c"),
-                       "--no-log", "--no-verbose"])
+                       "--device", "cuda", "--mesh_data", "1", "--checkpoints_dir",
+                       os.path.join(tmp, "ck7c"), "--no-log", "--no-verbose"])
         refusal = None
     except ValueError as e:  # the refusal this phase checks for
         refusal = str(e)
@@ -1824,7 +1844,8 @@ def phase8d(card, tmp):
             "--traindir", traindir, "--evaldir", os.path.join(tmp, "none"), "--checkpoints_dir",
             os.path.join(tmp, f"ck8d_{path}"), "--noise", "eld", "--include", "4", "-b", "8",
             "--bf16", "--epochs", "1", "--no-log", "--no-verbose", "--seed", str(SEED),
-            "--nThreads", "4", "--device", "cuda", "--scan", scan, "--profile"])
+            "--nThreads", "4", "--device", "cuda", "--mesh_data", "1", "--scan", scan,
+            "--profile"])
         launches += synthesize_kernel.launches
         steps += engine.iterations
         check(synthesize_kernel.launches == engine.iterations == 4,
@@ -2687,7 +2708,7 @@ def phase11b(card, tmp, store):
     argv = ["--traindir", os.path.dirname(store), "--checkpoints_dir", os.path.join(tmp, "ck11b"),
             "--name", "s11b", "--noise", "eld", "--include", "4", "-b", "8", "--bf16",
             "--epochs", "2", "--no-log", "--no-verbose", "--seed", str(SEED), "--nThreads", "4",
-            "--device", "cuda", "--scan", "0"]
+            "--device", "cuda", "--mesh_data", "1", "--scan", "0"]
     e2e_ms = {"eager": [], "graph": []}
     graph_step = engine_mod.make_train_step
     try:
@@ -2976,7 +2997,7 @@ def phase12ab(card, tmp, store):
     argv = ["--traindir", os.path.dirname(store), "--evaldir", os.path.join(tmp, "no_eval"),
             "--noise", "eld", "--include", "4", "-b", "8", "--bf16", "--epochs", "2",
             "--no-log", "--no-verbose", "--seed", str(SEED), "--nThreads", "4", "--device",
-            "cuda", "--scan", str(DP_SCAN)]
+            "cuda", "--mesh_data", "1", "--scan", str(DP_SCAN)]
     scan_builder = engine_mod.make_train_scan
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
@@ -3071,7 +3092,8 @@ def phase12ab(card, tmp, store):
           f"replays) == capture=False eager DDP == no group (one-process graph), every loss and "
           f"the parameters bit for bit, nothing moved at rate 0; 16 K1 launches in each; "
           f"'{said[0]}'", flush=True)
-    return {"launches": launches, "steps": steps_total}
+    return {"launches": launches, "steps": steps_total, "argv": argv,
+            "one": {k: runs["a"]["one"][k] for k in ("params", "losses", "steps")}}
 
 
 def _dp_profiled(tmp, name, fn):
@@ -3216,7 +3238,295 @@ def phase12(card, tmp, store=None):
           f"{t[2] - t[1]:.1f} s); torch {torch.__version__}, NCCL {torch.cuda.nccl.version()}",
           flush=True)
     print("[12] " + json.dumps({"12d": cd["results"], "12c": cd["nccl_kernels"]}), flush=True)
-    return {"launches": ab["launches"] + cd["launches"], "steps": ab["steps"] + cd["steps"]}
+    return {"launches": ab["launches"] + cd["launches"], "steps": ab["steps"] + cd["steps"],
+            "argv": ab["argv"], "one": ab["one"],
+            "dp_graph_ms": cd["results"]["unet"]["ms"]["pooled"]["dp_graph"]}
+
+
+TIMED_EPOCHS = 6  # 13c's launched run: 6 pooled calls of 8 steps, the 4 after the capture timed
+
+
+def _launched_rank(argv, deterministic):
+    """A rank that ``launch`` started (a spawned process): train_syn.main
+    over ``argv`` with each pooled call timed on the host clock (wall
+    seconds since the epoch, comparable with the launching process's), and
+    what the rank holds after it."""
+    import torch
+    import torch.distributed as dist
+
+    from eld_tpu_torch.noise.kernels import synthesize_kernel
+    from eld_tpu_torch.tools import train_syn
+    from eld_tpu_torch.train import engine as engine_mod
+    from eld_tpu_torch.train.steps import graph_replays
+
+    entered = time.time()
+    torch.backends.cudnn.deterministic = deterministic
+    calls, scan_fn = [], engine_mod.Engine._scan_fn
+
+    def timed(self, k):
+        fn = scan_fn(self, k)
+
+        def call(*a):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            calls.append((t0, time.time(), k))
+            return out
+
+        return call
+
+    engine_mod.Engine._scan_fn = timed
+    engine = train_syn.main(argv)
+    torch.cuda.synchronize()
+    out = {"params": _cpu_state(engine.model), "losses": [h[1] for h in engine.history],
+           "steps": engine.iterations, "launches": synthesize_kernel.launches,
+           "replays": sum(graph_replays(fn) for fn in engine._train_scans.values()),
+           "ddp": engine._forward is not None, "device": str(engine.device),
+           "current": torch.cuda.current_device(), "backend": dist.get_backend(),
+           "world": dist.get_world_size(), "rank": dist.get_rank(),
+           "local_rank": os.environ["LOCAL_RANK"], "entered": entered, "calls": calls}
+    engine.release_graphs()  # before the group is destroyed (see parallel/launch.py::_rank)
+    return out
+
+
+def _rank13_bits(argv):
+    """13a's rank: cudnn.deterministic, as phase 12a's runs."""
+    return _launched_rank(argv, deterministic=True)
+
+
+def _rank13_times(argv):
+    """13c's rank: cudnn's defaults, as phase 12d's timed calls."""
+    return _launched_rank(argv, deterministic=False)
+
+
+def phase13a(card, tmp, p12):
+    """``launch`` of one NCCL rank on cuda:0 (the whole launch path: the
+    agent, the rendezvous, the group, the rank's card) running train_syn
+    over phase 12's store at the quick-start width, 2 epochs of pooled
+    steps (--scan 4) under cudnn.deterministic: its parameters and losses
+    against phase 12a's in-process run of the same argv without a group,
+    bit for bit."""
+    from eld_tpu_torch.parallel.launch import launch
+
+    t_call = time.time()
+    rank = launch(_rank13_bits, p12["argv"] + ["--checkpoints_dir", os.path.join(tmp, "ck13"),
+                                               "--name", "launched13"], 1, "cuda")[0]
+    wall = time.time() - t_call
+    one = p12["one"]
+    check((rank["world"], rank["rank"], rank["local_rank"], rank["backend"], rank["device"],
+           rank["ddp"]) == (1, 0, "0", "nccl", "cuda:0", True),
+          f"13a: the launched rank is rank {rank['rank']} of {rank['world']} (LOCAL_RANK "
+          f"{rank['local_rank']}) on {rank['device']} over {rank['backend']}, DDP {rank['ddp']}")
+    want_replays = one["steps"] // DP_SCAN - 1
+    check(rank["steps"] == rank["launches"] == one["steps"] == 16
+          and rank["replays"] == want_replays,
+          f"13a: {rank['steps']} steps, {rank['launches']} K1 launches, {rank['replays']} "
+          f"replays (want 16, 16, {want_replays})")
+    check(rank["losses"] == one["losses"],
+          f"13a: losses {rank['losses']} vs the in-process run {one['losses']}")
+    diff = max(float((rank["params"][k] - v).abs().max()) for k, v in one["params"].items())
+    check(diff == 0, f"13a: parameters differ from the in-process run by {diff}")
+    print(f"[13a] launch() of 1 NCCL rank on cuda:0 (elastic agent, c10d rendezvous, the rank's "
+          f"group bound to its card): train_syn --scan {DP_SCAN}, 2 epochs of 8 pooled steps "
+          f"(unet b8 bf16), cudnn.deterministic: every call's losses and the parameters == "
+          f"phase 12a's in-process run without a group, bit for bit; {rank['steps']} steps, "
+          f"{rank['launches']} K1 launches, {rank['replays']} graph replays in the rank; "
+          f"{wall:.1f} s from the call to its return on {card}", flush=True)
+    return {"launches": rank["launches"], "steps": rank["steps"], "wall_s": wall,
+            "to_rank_s": rank["entered"] - t_call,
+            "to_first_call_s": rank["calls"][0][1] - t_call,
+            "to_capture_s": rank["calls"][1][1] - t_call}
+
+
+def phase13b(card, p12, tmp):
+    """The refusals and a failure, on the card: --mesh_data N+1 refused
+    naming cuda:N before any child starts (and the plan creates no CUDA
+    context, in a fresh process); -1 on a one-card host in-process with no
+    group; a launched rank that fails makes launch raise naming it while
+    this process goes on."""
+    import multiprocessing
+
+    import torch
+    import torch.distributed as dist
+
+    from eld_tpu_torch.parallel.launch import launch
+    from eld_tpu_torch.tools import train_syn
+    from eld_tpu_torch.train.engine import Engine
+
+    n = torch.cuda.device_count()
+    argv = p12["argv"] + ["--checkpoints_dir", os.path.join(tmp, "ck13"), "--name", "refused13"]
+    try:
+        train_syn.main(argv + ["--mesh_data", str(n + 1)])
+        refusal = None
+    except ValueError as e:  # the refusal this phase checks for
+        refusal = str(e)
+    check(refusal is not None and f"cuda:{n} is missing" in refusal
+          and not multiprocessing.active_children(),
+          f"13b: --mesh_data {n + 1} on {n} cards: {refusal!r}, children "
+          f"{multiprocessing.active_children()}")
+    probe = subprocess.run([sys.executable, "-c", (
+        "import json, torch\n"
+        "from eld_tpu_torch.config import Config\n"
+        "from eld_tpu_torch.parallel.launch import plan_ranks, visible_cards\n"
+        "n = visible_cards('cuda')\n"
+        "print(json.dumps([n, plan_ranks(Config(device='cuda'), n), "
+        "torch.cuda.is_initialized()]))")], capture_output=True, text=True, cwd=HERE)
+    planned = json.loads(probe.stdout.strip().splitlines()[-1]) if probe.returncode == 0 else None
+    check(planned == [n, n, False],
+          f"13b: a fresh process's plan (cards, ranks of -1, CUDA initialized): {planned} "
+          f"(want [{n}, {n}, false]); {probe.stderr[-2000:]}")
+    if n == 1:
+        engine = train_syn.main(argv + ["--mesh_data", "-1", "--epochs", "0"])
+        check(isinstance(engine, Engine) and not dist.is_initialized() and engine.world == 1,
+              f"13b: -1 on a one-card host gave {type(engine).__name__}, group "
+              f"{dist.is_initialized()}")
+        del engine
+        in_process = "-1 on this one-card host ran in this process, no group"
+    else:
+        in_process = f"-1 in-process not checked: {n} cards are visible"
+    t0 = time.time()
+    try:
+        launch(train_syn.main, argv + ["--traindir", os.path.join(tmp, "missing13")], 1, "cuda")
+        failure = None
+    except RuntimeError as e:  # the failure this phase checks for
+        failure = str(e)
+    failed_s = time.time() - t0
+    check(failure is not None and failure.startswith("rank 0 of 1 failed (exit code 1)")
+          and not multiprocessing.active_children(),
+          f"13b: a failing rank gave {failure!r}, children {multiprocessing.active_children()}")
+    torch.cuda.empty_cache()
+    print(f"[13b] --mesh_data {n + 1} refused before any child: {refusal!r}; a fresh process "
+          f"plans {planned[1]} rank(s) of -1 on {planned[0]} card(s), CUDA uninitialized; "
+          f"{in_process}; a rank that fails: launch raised in {failed_s:.1f} s, this process "
+          f"alive, no child left: {failure.splitlines()[0]!r} on {card}", flush=True)
+
+
+def phase13c(card, tmp, p12):
+    """Times on the launched path: one rank launched without
+    cudnn.deterministic (as phase 12d's calls) for 6 epochs of one pooled
+    call of 8 steps; the wall from the launch call to the rank's entry, its
+    first call and its capture, and its ms a step over the 4 replays,
+    beside phase 12d's data-parallel graph in this run."""
+    from eld_tpu_torch.parallel.launch import launch
+
+    argv = p12["argv"] + ["--checkpoints_dir", os.path.join(tmp, "ck13"), "--name", "timed13",
+                          "--scan", "8", "--epochs", str(TIMED_EPOCHS)]
+    t_call = time.time()
+    rank = launch(_rank13_times, argv, 1, "cuda")[0]
+    wall = time.time() - t_call
+    steps = TIMED_EPOCHS * 8
+    check(rank["steps"] == rank["launches"] == steps and rank["replays"] == TIMED_EPOCHS - 1,
+          f"13c: {rank['steps']} steps, {rank['launches']} K1 launches, {rank['replays']} "
+          f"replays (want {steps}, {steps}, {TIMED_EPOCHS - 1})")
+    ms = _step_ms(rank)
+    out = {"wall_s": wall, "to_rank_s": rank["entered"] - t_call,
+           "to_first_call_s": rank["calls"][0][1] - t_call,
+           "to_capture_s": rank["calls"][1][1] - t_call, "ms_per_step": ms,
+           "dp_graph_ms_12d": p12["dp_graph_ms"]}
+    print(f"[13c] the launched rank (1 NCCL rank, unet b8 bf16, --scan 8): from the launch call "
+          f"{out['to_rank_s']:.2f} s to the rank's target (interpreter, imports, rendezvous), "
+          f"{out['to_first_call_s']:.2f} s to the end of its first pooled call (Engine, NCCL "
+          f"group, pool, K1 load, the eager call), {out['to_capture_s']:.2f} s to the end of the "
+          f"capture, {wall:.2f} s to launch's return; ms a step over its {len(ms)} replays: "
+          f"{', '.join(f'{v:.2f}' for v in ms)}; phase 12d's data-parallel graph in this run: "
+          f"{', '.join(f'{v:.2f}' for v in p12['dp_graph_ms'])} on {card}", flush=True)
+    return {"launches": rank["launches"], "steps": rank["steps"], "times": out}
+
+
+def _step_ms(rank):
+    """A launched rank's ms a step over its pooled calls after the capture."""
+    return [(b - a) / k * 1e3 for a, b, k in rank["calls"][2:]]
+
+
+def phase13d(card, tmp):
+    """The launched data axis across the host's N >= 2 cards (not part of
+    ``main``, which needs one card): (a) train_syn --mesh_data -1 through
+    the entry point, N ranks, rank 0's RunRecord; (b) ``launch`` of N ranks
+    at 8 rows each (-b 8N): every rank on its own card with its NCCL group
+    there, bitwise equal parameters, K1 launches = steps, replays, and ms
+    a pooled step against (c) one launched rank at -b 8 in the same call;
+    (d) with N >= 3, ``--device cuda:1 --mesh_data 2``: ranks on cuda:1
+    and cuda:2."""
+    import torch
+
+    from eld_tpu_torch.parallel.launch import RunRecord, launch
+    from eld_tpu_torch.tools import train_syn
+
+    n = torch.cuda.device_count()
+    check(n >= 2, f"13d needs two or more visible cards, have {n}")
+    traindir = os.path.join(tmp, "train13d")
+    os.makedirs(traindir)
+    _write_store(os.path.join(traindir, "SID_Sony_Raw.eps"), count=64)
+
+    def argv(name, batch, epochs):
+        return ["--traindir", traindir, "--evaldir", os.path.join(tmp, "no_eval"),
+                "--checkpoints_dir", os.path.join(tmp, "ck13d"), "--name", name, "--noise", "eld",
+                "--include", "4", "-b", str(batch), "--bf16", "--epochs", str(epochs),
+                "--no-log", "--no-verbose", "--seed", str(SEED), "--nThreads", "4", "--device",
+                "cuda", "--scan", "2"]
+
+    t0 = time.time()
+    rec = train_syn.main(argv("cli13d", 8 * n, 2) + ["--mesh_data", "-1"])
+    cli_s = time.time() - t0
+    per_epoch = 64 // (8 * n)
+    check(isinstance(rec, RunRecord) and (rec.rank, rec.world, rec.device, rec.iterations)
+          == (0, n, "cuda:0", 2 * per_epoch),
+          f"13d (a): --mesh_data -1 on {n} cards gave {type(rec).__name__} "
+          f"{getattr(rec, 'world', None)} ranks, {getattr(rec, 'iterations', None)} steps")
+    out = {"cli_s": cli_s}
+    for tag, ranks, batch, epochs in (("dp", n, 8 * n, 6), ("one", 1, 8, 2)):
+        got = launch(_rank13_times, argv(f"{tag}13d", batch, epochs), ranks, "cuda")
+        steps = epochs * (64 // batch)
+        for r, res in enumerate(got):
+            check((res["device"], res["current"], res["world"], res["backend"])
+                  == (f"cuda:{r}", r, ranks, "nccl")
+                  and res["steps"] == res["launches"] == steps
+                  and res["replays"] == len(res["calls"]) - 1,
+                  f"13d {tag} rank {r}: {res['device']} (current {res['current']}) of "
+                  f"{res['world']} over {res['backend']}, {res['steps']} steps, "
+                  f"{res['launches']} K1 launches, {res['replays']} replays of "
+                  f"{len(res['calls'])} calls (want cuda:{r}, {steps}, {steps})")
+            diff = max(float((res["params"][k] - v).abs().max())
+                       for k, v in got[0]["params"].items())
+            check(diff == 0, f"13d {tag}: rank {r}'s parameters differ from rank 0's by {diff}")
+        out[tag] = {"ms": _step_ms(got[0]), "launches": sum(g["launches"] for g in got),
+                    "steps": sum(g["steps"] for g in got),
+                    "to_first_call_s": got[0]["calls"][0][1] - got[0]["entered"]}
+    if n >= 3:
+        got = launch(_rank13_times, argv("k13d", 16, 1) + ["--device", "cuda:1"], 2, "cuda:1")
+        cards = [(g["device"], g["current"]) for g in got]
+        check(cards == [("cuda:1", 1), ("cuda:2", 2)],
+              f"13d (d): --device cuda:1 --mesh_data 2 put the ranks on {cards}")
+        out["k1"] = {"launches": sum(g["launches"] for g in got),
+                     "steps": sum(g["steps"] for g in got)}
+    print(f"[13d] {n} cards: train_syn --mesh_data -1 launched {rec.world} NCCL ranks, rank 0 on "
+          f"{rec.device} ({cli_s:.1f} s); launch() of {n} ranks at -b {8 * n} (8 rows each): "
+          f"rank r on cuda:r with its group there, parameters bitwise equal on every rank, K1 "
+          f"launches = steps; ms a pooled step (calls of 2) {n} ranks "
+          f"{', '.join(f'{v:.2f}' for v in out['dp']['ms'])} against 1 rank at -b 8 "
+          f"{', '.join(f'{v:.2f}' for v in out['one']['ms'])}"
+          + ("; --device cuda:1 --mesh_data 2: ranks on cuda:1 and cuda:2" if n >= 3 else "")
+          + f" on {card}", flush=True)
+    print("[13d] " + json.dumps(out), flush=True)
+    return out
+
+
+def phase13(card, tmp, p12):
+    """eld_tpu's single-process data axis: an entry point's own launch of
+    its ranks (13a the launched NCCL rank bit for bit against the
+    in-process run, 13b the refusals and a failure, 13c the times)."""
+    t = [time.perf_counter()]
+    a = phase13a(card, tmp, p12)
+    t.append(time.perf_counter())
+    phase13b(card, p12, tmp)
+    t.append(time.perf_counter())
+    c = phase13c(card, tmp, p12)
+    t.append(time.perf_counter())
+    print(f"[13] phase 13: {t[-1] - t[0]:.1f} s (13a {t[1] - t[0]:.1f} s, 13b {t[2] - t[1]:.1f} "
+          f"s, 13c {t[3] - t[2]:.1f} s)", flush=True)
+    print("[13] " + json.dumps({"13a": a, "13c": c["times"]}), flush=True)
+    return {"launches": a["launches"] + c["launches"], "steps": a["steps"] + c["steps"]}
 
 
 def main():
@@ -3263,18 +3573,20 @@ def main():
         p11 = phase11(card, tmp, (p5["sid"], p5["pairs"]))
         torch.cuda.empty_cache()
         p12 = phase12(card, tmp, os.path.join(tmp, "train11", "SID_Sony_Raw.eps"))
+        torch.cuda.empty_cache()
+        p13 = phase13(card, tmp, p12)
 
     from eld_tpu_torch.noise.kernels import REPLACES, SOURCE_PATH
 
     launches = (s["launches"] + pooled_launches + srgb_launches + p7["7a"]["launches"]
                 + p7["7b"]["launches"] + p8["launches"] + p9["launches"] + p10["launches"]
-                + p11["launches"] + p12["launches"])
+                + p11["launches"] + p12["launches"] + p13["launches"])
     # a data-parallel rank's step counts as a step: one launch each; phase
     # 9's plain-noise arms are not on K1's path and count no steps; a
     # replayed CUDA graph's K1 launches are counted by its runner
     steps = (s["steps"] + pooled_steps + srgb_steps + p7["7a"]["steps"]
              + p7["7b"]["rank_steps"] + p8["steps"] + p9["steps"] + p10["steps"]
-             + p11["steps"] + p12["steps"])
+             + p11["steps"] + p12["steps"] + p13["steps"])
     kernels = {"kernels": [{
         "name": "noise_synth", "route": "cuda", "source": SOURCE_PATH, "replaces": REPLACES,
         "launches": launches, "max_abs_err": k["max_abs_err"], "ms": k["ms"],

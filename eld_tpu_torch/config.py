@@ -4,8 +4,9 @@ The same dataclass and flag names as eld_tpu, so command lines carry
 across, plus an explicit ``--device`` (default ``cuda``).  ``--profile``
 writes a torch.profiler trace of the first train steps under
 ``save_dir/profile`` (``train.engine.Engine``).  ``--mesh_data`` /
-``--mesh_spatial`` resolve in the Engine (``parallel.mesh.MeshSpec.resolve``)
-and ``--no-async-ckpt`` makes saves synchronous.
+``--mesh_spatial`` resolve in the Engine (``parallel.mesh.MeshSpec.resolve``),
+after the entry points have launched the data axis's ranks
+(``parallel.launch``), and ``--no-async-ckpt`` makes saves synchronous.
 """
 
 from __future__ import annotations
@@ -87,16 +88,34 @@ class Config:
         return os.path.join(self.checkpoints_dir, self.run_name)
 
 
+def rank_card(device, local_rank: int, cards: int) -> torch.device:
+    """The card of the rank with ``local_rank`` on its host when ``--device``
+    is ``device`` (``cuda`` or ``cuda:k``): ``cuda:k+local_rank``, k = 0 for
+    a bare ``cuda`` -- the ranks of a host take the cards from the first
+    one on, as ``--mesh_spatial`` takes its cards (``parallel.mesh.
+    spatial_devices``).  A card past the ``cards`` visible ones is refused
+    by name; nothing falls back."""
+    device = torch.device(device)
+    index = (device.index or 0) + local_rank
+    if index >= cards:
+        raise ValueError(
+            f"--device {device} for local rank {local_rank} is cuda:{index}, but {cards} "
+            f"CUDA cards are visible (cuda:0..cuda:{cards - 1}): cuda:{index} is missing")
+    return torch.device("cuda", index)
+
+
 def torch_device(name: str) -> torch.device:
     """``torch.device(name)`` for a run: raises for a CUDA device when there
     is no card (nothing falls back to the CPU), and turns TF32 off, so f32
-    matmuls and convolutions compute in f32.  Under torchrun a bare
-    ``cuda`` is the rank's own card, ``cuda:LOCAL_RANK``."""
+    matmuls and convolutions compute in f32.  Under a launcher (torchrun's
+    ``LOCAL_RANK``) a rank's card is ``rank_card``'s, ``cuda:k+LOCAL_RANK``;
+    without one an explicit ``cuda:k`` must be a visible card."""
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {name}: no CUDA device is available")
-    if device.type == "cuda" and device.index is None and "LOCAL_RANK" in os.environ:
-        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+    if device.type == "cuda" and ("LOCAL_RANK" in os.environ or device.index is not None):
+        device = rank_card(device, int(os.environ.get("LOCAL_RANK", 0)),
+                           torch.cuda.device_count())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return device

@@ -5,17 +5,20 @@ eld_tpu runs one process per host and shards over that host's devices
 with a ``jax.sharding.Mesh`` of two named axes.  PyTorch runs one process
 per card, so the port maps them so:
 
-  * ``data``    -- one torch.distributed rank per card (``torchrun
-                   --nproc_per_node N ... --multihost``); each rank trains
-                   on its rows of every global batch and
-                   DistributedDataParallel averages the gradients;
+  * ``data``    -- one torch.distributed rank per card, launched by the
+                   entry point itself from ``--mesh_data N`` (and -1,
+                   every visible card from ``--device``'s on;
+                   ``parallel/launch.py``) or by ``torchrun
+                   --nproc_per_node N ... --multihost``; each rank trains
+                   on its rows of every global batch and the ranks
+                   average the gradients;
   * ``spatial`` -- the local cards of one process: the full-frame eval
                    forward runs a halo window of the frame on each of them
                    (``parallel/spatial.py``) and needs no collective.
 
-One process sharding a batch over several local cards (eld_tpu's
-single-process ``data > 1``) has no counterpart: PyTorch does that with
-ranks.
+eld_tpu's single-process ``data > 1`` is the entry point's launch: the
+one command starts one rank per card, as PyTorch shards a batch.  Its
+``data x spatial`` grid in one command is not supported yet.
 """
 
 from __future__ import annotations
@@ -43,8 +46,10 @@ class MeshSpec:
         if data != world:
             raise ValueError(
                 f"mesh data={data} needs {data} ranks, have {world}: the data axis is one "
-                f"rank per card, so launch `torchrun --nproc_per_node {data} -m "
-                f"eld_tpu_torch.tools.<entry point> ... --multihost` (or leave --mesh_data -1)")
+                f"rank per card, so run the entry point with --mesh_data {data} and no "
+                f"launcher (it launches its {data} ranks itself), or launch `torchrun "
+                f"--nproc_per_node {data} -m eld_tpu_torch.tools.<entry point> ... "
+                f"--multihost` (or leave --mesh_data -1)")
         spatial = max(1, self.spatial)
         if spatial > cards and spatial > 1:
             raise ValueError(

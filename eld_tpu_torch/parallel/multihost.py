@@ -1,7 +1,8 @@
 """Multi-process runtime bootstrap (counterpart of
 ``eld_tpu/parallel/multihost.py``).
 
-One process per card, as torchrun launches them:
+One process per card, as torchrun launches them, or as an entry point's
+``--mesh_data N`` does itself (``parallel/launch.py``):
 
   * ``initialize_multihost()`` brings up the default torch.distributed
     process group, from torchrun's environment (RANK, WORLD_SIZE,
@@ -29,6 +30,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from eld_tpu_torch.config import rank_card
+
 _TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
 
@@ -40,7 +43,8 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
                          num_processes: Optional[int] = None,
                          process_id: Optional[int] = None,
                          strict: bool = False,
-                         backend: str = "nccl") -> tuple:
+                         backend: str = "nccl",
+                         device: str = "cuda") -> tuple:
     """Initialize the default process group and return ``host_shard()``.
 
     Outcomes (eld_tpu's table):
@@ -54,9 +58,10 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
       * no cluster environment but ``strict`` (the user asked for
         ``--multihost``) -> raise: N uncoordinated copies would train on
         duplicate data.
-    Under NCCL the group is bound to ``cuda:LOCAL_RANK`` (torchrun's; the
-    rank without it) at once, so a failed NCCL init raises here, not at
-    the first collective."""
+    Under NCCL the group is bound at once to the rank's card, ``config.
+    rank_card(device, LOCAL_RANK)`` (torchrun's LOCAL_RANK; the rank
+    without it), the card the rank's Engine takes, so a failed NCCL init
+    raises here, not at the first collective."""
     if dist.is_initialized():
         return host_shard()
     args = (coordinator_address, num_processes, process_id)
@@ -71,16 +76,18 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
     elif strict:
         raise ValueError(
             "--multihost was given but no cluster environment was found (torchrun's "
-            f"{', '.join(_TORCHRUN_ENV)}): launch with `torchrun --nproc_per_node N -m "
+            f"{', '.join(_TORCHRUN_ENV)}): give the entry point --mesh_data N (it launches "
+            "its N ranks itself), or launch with `torchrun --nproc_per_node N -m "
             "eld_tpu_torch.tools.<entry point> ... --multihost`; continuing would train N "
             "uncoordinated copies on duplicate data")
     else:
         return (0, 1)
     if backend == "nccl":
         rank = int(process_id) if process_id is not None else int(os.environ["RANK"])
-        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank)))
-        torch.cuda.set_device(device)
-        kw["device_id"] = device
+        card = rank_card(device, int(os.environ.get("LOCAL_RANK", rank)),
+                         torch.cuda.device_count())
+        torch.cuda.set_device(card)
+        kw["device_id"] = card
     dist.init_process_group(backend, **kw)
     return host_shard()
 
@@ -91,7 +98,7 @@ def maybe_initialize_multihost(cfg) -> tuple:
     multi-process launch without the flag (the Engine checks again)."""
     if cfg.multihost:
         backend = "gloo" if torch.device(cfg.device).type == "cpu" else "nccl"
-        return initialize_multihost(strict=True, backend=backend)
+        return initialize_multihost(strict=True, backend=backend, device=cfg.device)
     world = max(host_shard()[1], int(os.environ.get("WORLD_SIZE", "1")))
     if world > 1:
         raise RuntimeError(

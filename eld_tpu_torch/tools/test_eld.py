@@ -7,9 +7,11 @@ full-frame metrics with illuminance correction and the amplification
 ratio from EXIF.
 
 Full frames fit one card; ``--mesh_spatial S`` (in place of ``--chop``)
-splits each frame's height over S cards with halo windows.  Under
-``torchrun --nproc_per_node N ... --multihost`` each rank scores every N-th
-item and the metrics are merged.
+splits each frame's height over S cards with halo windows.  With
+``--mesh_data N`` (launched from this command; -1, the default, is every
+visible card from ``--device``'s on) or under ``torchrun --nproc_per_node N
+... --multihost`` each rank scores every N-th item and the metrics are
+merged.
 
 Usage:
   python -m eld_tpu_torch.tools.test_eld --name sid_eld --datadir ./data/ELD --chop
@@ -23,6 +25,7 @@ import sys
 from eld_tpu_torch import config as config_mod
 from eld_tpu_torch.data.datasets import ELDEvalDataset
 from eld_tpu_torch.data.loader import Loader
+from eld_tpu_torch.parallel.launch import run_ranks
 from eld_tpu_torch.parallel.multihost import maybe_initialize_multihost
 from eld_tpu_torch.train.engine import Engine
 
@@ -43,6 +46,9 @@ def main(argv=None):
                      help="evaluate only this amplification level (default: both)")
     ns, rest = pre.parse_known_args(argv)
     cfg = config_mod.parse(rest, train=False)
+    launched = run_ranks(main, argv, cfg)
+    if launched is not None:
+        return launched
     if not (cfg.resume or cfg.model_path):
         cfg.resume = True
     maybe_initialize_multihost(cfg)

@@ -6,8 +6,10 @@ Scores the 15-indoor-scene subset bucketed by exposure ratio {100, 250,
 leaves out the fixed-pattern noise region the reference documents), or
 the pairs of a ``--pairs`` file.
 
-Under ``torchrun --nproc_per_node N ... --multihost`` each rank scores
-every N-th item and the metrics are merged.
+With ``--mesh_data N`` (launched from this command; -1, the default, is
+every visible card from ``--device``'s on) or under ``torchrun
+--nproc_per_node N ... --multihost`` each rank scores every N-th item and
+the metrics are merged.
 
 Usage:
   python -m eld_tpu_torch.tools.test_sid --name sid_eld --datadir ./data/SID/Sony \\
@@ -25,6 +27,7 @@ from eld_tpu_torch import config as config_mod
 from eld_tpu_torch.core.emor import load_crf
 from eld_tpu_torch.data.datasets import SIDDataset
 from eld_tpu_torch.data.loader import Loader
+from eld_tpu_torch.parallel.launch import run_ranks
 from eld_tpu_torch.parallel.multihost import maybe_initialize_multihost
 from eld_tpu_torch.data.pairs import eval_pairs_by_ratio
 from eld_tpu_torch.train.engine import Engine
@@ -61,6 +64,9 @@ def main(argv=None):
                           "(in place of the vendored indoor-15 subset)")
     ns, rest = pre.parse_known_args(argv)
     cfg = config_mod.parse(rest, train=False)
+    launched = run_ranks(main, argv, cfg)
+    if launched is not None:
+        return launched
     if not (cfg.resume or cfg.model_path):
         cfg.resume = True
     maybe_initialize_multihost(cfg)

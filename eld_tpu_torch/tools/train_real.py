@@ -6,8 +6,10 @@ already x ratio at pack time: ``build_dataset paired``), no noise model
 anywhere, the per-step loader, the same LR schedule as ``train_syn``, and
 the same periodic SID eval.
 
-Usage (data-parallel over N cards: ``torchrun --nproc_per_node N -m
-eld_tpu_torch.tools.train_real ... --multihost``):
+Usage (data-parallel over N cards: ``--mesh_data N`` launches one rank per
+card from this command and returns rank 0's ``parallel.launch.RunRecord``,
+or ``torchrun --nproc_per_node N -m eld_tpu_torch.tools.train_real ...
+--multihost``):
   python -m eld_tpu_torch.tools.train_real --name sid_paired --traindir ./data/Train -b 8
 """
 
@@ -24,6 +26,7 @@ from eld_tpu_torch.data.builder import store_name
 from eld_tpu_torch.data.datasets import ELDTrainDataset
 from eld_tpu_torch.data.loader import Loader
 from eld_tpu_torch.data.patchstore import PatchStore
+from eld_tpu_torch.parallel.launch import run_ranks
 from eld_tpu_torch.parallel.multihost import maybe_initialize_multihost
 from eld_tpu_torch.tools.train_syn import eval_loaders, train_epochs
 from eld_tpu_torch.train.engine import Engine
@@ -37,6 +40,9 @@ def main(argv=None):
     pre.add_argument("--eval_every", type=int, default=20)
     ns, rest = pre.parse_known_args(argv)
     cfg = config_mod.parse(rest, train=True)
+    launched = run_ranks(main, argv, cfg)
+    if launched is not None:
+        return launched
     cfg.noise = ""  # paired
     shard = maybe_initialize_multihost(cfg)
 

@@ -21,7 +21,10 @@ Two other sources:
     at C = 3.
 
 Data-parallel over N cards: one rank per card, ``-b`` the global batch
-(each rank trains on ``-b / N`` rows of it, and holds the whole pool):
+(each rank trains on ``-b / N`` rows of it, and holds the whole pool).
+``--mesh_data N`` launches the N ranks from this one command (-1, the
+default, is every visible card from ``--device``'s on), and ``main``
+returns rank 0's ``parallel.launch.RunRecord``; or under torchrun:
   torchrun --nproc_per_node N -m eld_tpu_torch.tools.train_syn ... --multihost
 
 Usage:
@@ -47,6 +50,7 @@ from eld_tpu_torch.data.loader import Loader, pool_to_device
 from eld_tpu_torch.data.pairs import eval_pairs_by_ratio
 from eld_tpu_torch.data.patchstore import PatchStore
 from eld_tpu_torch.noise.params import CAMERA_NAMES
+from eld_tpu_torch.parallel.launch import run_ranks
 from eld_tpu_torch.parallel.multihost import all_hosts_agree, maybe_initialize_multihost
 from eld_tpu_torch.train.engine import Engine
 
@@ -171,6 +175,9 @@ def main(argv=None):
                           "memory, else 0")
     ns, rest = pre.parse_known_args(argv)
     cfg = config_mod.parse(rest, train=True)
+    launched = run_ranks(main, argv, cfg)
+    if launched is not None:
+        return launched
     shard = maybe_initialize_multihost(cfg)
 
     if srgb_stage(cfg):

@@ -178,8 +178,9 @@ class Engine:
                 "would load duplicate batches. Pass --multihost.")
         if cfg.multihost and not torch.distributed.is_initialized():
             raise RuntimeError(
-                "--multihost needs the torch.distributed process group: launch under torchrun "
-                "and call parallel.multihost.maybe_initialize_multihost(cfg) first")
+                "--multihost needs the torch.distributed process group: give the entry point "
+                "--mesh_data N (it launches its ranks) or launch under torchrun, and call "
+                "parallel.multihost.maybe_initialize_multihost(cfg) first")
         if cfg.mesh_spatial > 1 and self.world > 1:
             raise NotImplementedError(
                 "spatially-sharded eval is not supported across processes (eval items are "

@@ -438,16 +438,20 @@ def test_initialize_multihost_outcomes_without_a_cluster(monkeypatch):
 
 
 def test_refusals_in_one_process(tmp_path, monkeypatch):
-    """--mesh_data that is not the world size (the Engine and test_sid),
+    """--mesh_data that is not the world size (the Engine, and test_sid
+    under a launcher of one rank, where the entry point launches nothing),
     --chop with --mesh_spatial > 1, --mesh_spatial beyond the visible
     cards, and a multi-process launch without --multihost."""
     for k in TORCHRUN_ENV:
         monkeypatch.delenv(k, raising=False)
     with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         Engine(_cfg(tmp_path, "d", mesh_data=2))
-    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
-        test_sid.main(["--mesh_data", "2", "--device", "cpu", "--checkpoints_dir",
-                       str(tmp_path / "sid"), "--no-log", "--no-verbose"])
+    with monkeypatch.context() as launcher:
+        for k, v in (("RANK", "0"), ("WORLD_SIZE", "1"), ("LOCAL_RANK", "0")):
+            launcher.setenv(k, v)
+        with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
+            test_sid.main(["--mesh_data", "2", "--device", "cpu", "--checkpoints_dir",
+                           str(tmp_path / "sid"), "--no-log", "--no-verbose"])
     with pytest.raises(ValueError, match="mutually exclusive"):
         Engine(_cfg(tmp_path, "c", chop=True, mesh_spatial=2))
     cards = torch.cuda.device_count() if torch.cuda.is_available() else 0

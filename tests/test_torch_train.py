@@ -284,8 +284,11 @@ def test_train_syn_cli_runs_two_steps_on_cpu(tmp_path):
     assert all(onp.isfinite(h[1]["Pixel"]) for h in eng.history)
     assert train_syn.lr_for_epoch(99) == 1e-4 and train_syn.lr_for_epoch(100) == 5e-5
     assert train_syn.lr_for_epoch(180) == 1e-5
-    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
-        train_syn.main(argv + ["--mesh_data", "2"])
+    # no launcher around it: --mesh_data 2 launches two gloo ranks, and
+    # main returns rank 0's record
+    rec = train_syn.main(argv + ["--mesh_data", "2"])
+    assert (rec.rank, rec.world, rec.device, rec.iterations) == (0, 2, "cpu", 2)
+    assert all(onp.isfinite(h[1]["Pixel"]) for h in rec.history)
     with pytest.raises(ValueError, match="no cluster environment"):
         train_syn.main(argv + ["--multihost"])
     with pytest.raises(ValueError, match="offline_noise"):
