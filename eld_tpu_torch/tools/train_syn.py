@@ -53,6 +53,7 @@ from eld_tpu_torch.noise.params import CAMERA_NAMES
 from eld_tpu_torch.parallel.launch import run_ranks
 from eld_tpu_torch.parallel.multihost import all_hosts_agree, maybe_initialize_multihost
 from eld_tpu_torch.train.engine import Engine
+from eld_tpu_torch.utils.logging import span
 
 AUTO_SCAN = 10
 
@@ -142,23 +143,25 @@ def train_epochs(engine: Engine, epochs: int, eval_every: int, evals: dict, trai
                  pool=None, steps_per_epoch: int = 0, scan: int = 0):
     """Train to ``epochs`` under the reference schedule, from the pool with
     ``scan`` steps per call or else from ``train_loader``, scoring on the
-    eval loaders every ``eval_every`` epochs."""
+    eval loaders every ``eval_every`` epochs.  Under a profiler each epoch
+    is a span (``eld.epoch``)."""
     while engine.epoch < epochs:
-        engine.set_learning_rate(lr_for_epoch(engine.epoch))
-        if pool is not None:
-            engine.train_pool(pool, steps_per_epoch, steps_per_call=scan)
-        else:
-            engine.train(train_loader)
-        if engine.epoch % eval_every == 0 and evals:
-            try:
-                engine.eval(evals[100], dataset_name="sid_eval_100", correct=True)
-                engine.eval(evals[300], dataset_name="sid_eval_300", correct=True)
-            except Exception as e:  # noqa: BLE001 - a failed eval does not stop training
-                if engine.world > 1:
-                    # the ranks cannot go on safely after control flow
-                    # diverged inside a collective section
-                    raise
-                print(f"[w] eval failed: {e}", file=sys.stderr)
+        with span("eld.epoch", engine.epoch):
+            engine.set_learning_rate(lr_for_epoch(engine.epoch))
+            if pool is not None:
+                engine.train_pool(pool, steps_per_epoch, steps_per_call=scan)
+            else:
+                engine.train(train_loader)
+            if engine.epoch % eval_every == 0 and evals:
+                try:
+                    engine.eval(evals[100], dataset_name="sid_eval_100", correct=True)
+                    engine.eval(evals[300], dataset_name="sid_eval_300", correct=True)
+                except Exception as e:  # noqa: BLE001 - a failed eval does not stop training
+                    if engine.world > 1:
+                        # the ranks cannot go on safely after control flow
+                        # diverged inside a collective section
+                        raise
+                    print(f"[w] eval failed: {e}", file=sys.stderr)
 
 
 def main(argv=None):

@@ -14,8 +14,10 @@ raw -> sRGB (``--stage_eval srgb``, gamma or the calibrated CRF under
 
 ``--profile`` records a torch.profiler trace (CPU and, on a card, CUDA
 activity) of epoch 0's first ``min(8, n)`` steps on the per-step path and
-of ``train_pool``'s first call on the pooled one, to
-``save_dir/profile/<train|train_pool>.pt.trace.json``.
+of ``train_pool``'s first warm replays on the pooled one (``_trace_calls``),
+to ``save_dir/profile/<train|train_pool>.pt.trace.json``.  While a
+profiler records, the pooled path names its host work in spans
+(``utils/logging.py::span``).
 
 Under ``--multihost`` (one torch.distributed rank per card, launched by
 torchrun) the Engine trains data-parallel, stride-shards eval and test
@@ -67,6 +69,7 @@ from eld_tpu_torch.utils.logging import (
     ThroughputMeter,
     get_summary_writer,
     progress,
+    span,
     write_loss,
 )
 
@@ -311,45 +314,63 @@ class Engine:
         resumed run reproduces the picks and the noise whatever K is.
         Metrics are read one call late, so the host queues call i+1 while
         the device runs call i.  On a card each (K, batch) runs as one CUDA
-        graph from its second call on a pool (``steps.make_train_scan``)."""
-        cfg = self.cfg
-        print(f"\nEpoch: {self.epoch} (lr {get_learning_rate(self.state):.2e}, "
-              f"scan x{steps_per_call})")
-        meters = AverageMeters()
-        t0 = time.time()
-        host_step = self.iterations
-        n_full, rem = divmod(max(steps, 1), steps_per_call)
-        launches = [steps_per_call] * n_full + ([rem] if rem else [])
-        pending = None  # (index, metrics, step count after the call, K)
+        graph from its second call on a pool (``steps.make_train_scan``).
+        Under a profiler the epoch, each call and the drain's read and
+        report are spans (``eld.pool.*``)."""
+        with span("eld.pool.epoch", self.epoch):
+            cfg = self.cfg
+            print(f"\nEpoch: {self.epoch} (lr {get_learning_rate(self.state):.2e}, "
+                  f"scan x{steps_per_call})")
+            meters = AverageMeters()
+            t0 = time.time()
+            host_step = self.iterations
+            n_full, rem = divmod(max(steps, 1), steps_per_call)
+            launches = [steps_per_call] * n_full + ([rem] if rem else [])
+            pending = None  # (index, metrics, step count after the call, K)
 
-        def drain(i, metrics, step_idx, k):
-            self.throughput.tick(cfg.batch_size * k)
-            values = {name: float(v) for name, v in metrics.items()}
-            self.history.append((step_idx, values, time.perf_counter()))
-            meters.update(values)
-            if self.host0:
-                progress(i, len(launches),
-                         f"{meters} | {self.throughput.items_per_sec:.1f} patches/s", every=1)
-            if self.writer is not None:
-                write_loss(self.writer, "train", meters, step_idx)
+            def drain(i, metrics, step_idx, k):
+                with span("eld.pool.read"):
+                    values = {name: float(v) for name, v in metrics.items()}
+                with span("eld.pool.report"):
+                    self.history.append((step_idx, values, time.perf_counter()))
+                    self.throughput.tick(cfg.batch_size * k)
+                    meters.update(values)
+                    if self.host0:
+                        progress(i, len(launches),
+                                 f"{meters} | {self.throughput.items_per_sec:.1f} patches/s",
+                                 every=1)
+                    if self.writer is not None:
+                        write_loss(self.writer, "train", meters, step_idx)
 
-        # --profile: the first call of epoch 0 (eld_tpu traces only the
-        # per-step path; the pooled one is the port's default)
-        prof = self._start_trace()
-        for i, k in enumerate(launches):
-            seeds = [fold_in(cfg.seed, host_step + j) for j in range(k)]
-            metrics = self._scan_fn(k)(self.state, pool, seeds)
-            if prof is not None:
-                self._stop_trace(prof, "train_pool")
-                prof = None
-            host_step += k
+            traced = self._trace_calls(len(launches))
+            prof = None
+            for i, k in enumerate(launches):
+                if i == traced.start:
+                    prof = self._start_trace()
+                with span("eld.pool.call", host_step):
+                    seeds = [fold_in(cfg.seed, host_step + j) for j in range(k)]
+                    metrics = self._scan_fn(k)(self.state, pool, seeds)
+                    host_step += k
+                    if pending is not None:
+                        drain(*pending)
+                    pending = (i, metrics, host_step, k)
+                if prof is not None and i == traced.stop - 1:
+                    self._stop_trace(prof, "train_pool")
+                    prof = None
             if pending is not None:
                 drain(*pending)
-            pending = (i, metrics, host_step, k)
-        if pending is not None:
-            drain(*pending)
-        self._end_epoch(t0)
-        return meters
+            self._end_epoch(t0)
+            return meters
+
+    @staticmethod
+    def _trace_calls(n: int) -> range:
+        """The calls of an epoch of ``n`` that --profile traces: the third
+        through the sixth, the first warm replays (the first call of a
+        pool runs eagerly, the second captures), or the last where there
+        are fewer than three.  eld_tpu traces only the per-step path; the
+        pooled one is the port's default."""
+        start = 2 if n >= 3 else n - 1
+        return range(start, min(start + 4, n))
 
     # ---- --profile ----
     def _start_trace(self):
@@ -382,13 +403,14 @@ class Engine:
 
     def _end_epoch(self, t0: float):
         cfg = self.cfg
-        self.state.epoch += 1
-        if not cfg.no_log:
-            if self.epoch % cfg.save_epoch_freq == 0:
-                print(f"saving the model at epoch {self.epoch}, iters {self.iterations}")
-                self.save()
-            self.save(label="latest")
-            print(f"Time Taken: {int(time.time() - t0)} sec")
+        with span("eld.epoch.end", self.epoch):
+            self.state.epoch += 1
+            if not cfg.no_log:
+                if self.epoch % cfg.save_epoch_freq == 0:
+                    print(f"saving the model at epoch {self.epoch}, iters {self.iterations}")
+                    self.save()
+                self.save(label="latest")
+                print(f"Time Taken: {int(time.time() - t0)} sec")
 
     # ---- evaluation ----
     def _to_device(self, x) -> torch.Tensor:

@@ -63,6 +63,7 @@ from eld_tpu_torch.noise.params import CameraParamsBank, sample_params_batch, ta
 from eld_tpu_torch.ops.chop import forward_chop
 from eld_tpu_torch.parallel.mesh import rank_rows
 from eld_tpu_torch.train.state import TrainState
+from eld_tpu_torch.utils.logging import span
 
 NOISE_IMPLS = ("auto", "kernel", "plain")
 _MASK64 = (1 << 64) - 1
@@ -452,7 +453,8 @@ class _GraphCall:
     returns copies of the graph's outputs, which the next replay
     overwrites.  ``pool``: a memory pool shared with other graphs that
     replay one at a time on one stream (None: the graph's own).  A capture
-    or replay that fails raises.
+    or replay that fails raises.  Each part of a call is a span of its own
+    in a profiler's trace (``eld.graph.*``, ``utils/logging.py``).
 
     ``shard=(rank, world)`` and ``all_reduce``: a data-parallel train
     call.  Its noise seeds are the rank's, and each step averages the
@@ -527,72 +529,79 @@ class _GraphCall:
         """Reseed slot j from ``seeds[j]`` and copy the noise seeds
         ``rank_noise_seed(seeds[j], *shard)`` into the graph's seed buffer
         (or seed the plain noise's generators with them)."""
-        noise_seeds = [rank_noise_seed(s, *self.shard) for s in seeds]
-        for rng, seed in zip(self.slots, seeds):
-            rng.reseed(seed)
-        for gen, seed in zip(self.noise, noise_seeds):
-            gen.manual_seed(seed)
-        if self.copied is not None:
-            self.copied.synchronize()  # the last call's copy has read the pinned buffer
-        self.seeds_host.numpy()[:] = [seed_int64(s) for s in noise_seeds]
-        self.seeds.copy_(self.seeds_host, non_blocking=True)
-        if self.copied is not None:
-            self.copied.record()
+        with span("eld.graph.seeds"):
+            noise_seeds = [rank_noise_seed(s, *self.shard) for s in seeds]
+            for rng, seed in zip(self.slots, seeds):
+                rng.reseed(seed)
+            for gen, seed in zip(self.noise, noise_seeds):
+                gen.manual_seed(seed)
+            if self.copied is not None:
+                self.copied.synchronize()  # the last call's copy has read the pinned buffer
+            self.seeds_host.numpy()[:] = [seed_int64(s) for s in noise_seeds]
+            self.seeds.copy_(self.seeds_host, non_blocking=True)
+            if self.copied is not None:
+                self.copied.record()
 
     def __call__(self, state: Optional[TrainState], inputs: Dict[str, torch.Tensor],
                  seeds: Sequence[int] = ()):
-        if self.binding is not None and not _same_binding(self.binding,
-                                                          self.bind(state, inputs)):
-            self.reset()
+        with span("eld.graph.bind"):
+            if self.binding is not None and not _same_binding(self.binding,
+                                                              self.bind(state, inputs)):
+                self.reset()
         if self.slots:
             self._load_seeds(seeds)
         if self.binding is None:
             return self._eager(state, inputs)
         if self.graph is None:
             self._capture(state, inputs)
-        for key, buf in self.inputs.items():
-            buf.copy_(inputs[key])
-        self.graph.replay()
+        with span("eld.graph.replay"):
+            for key, buf in self.inputs.items():
+                buf.copy_(inputs[key])
+            self.graph.replay()
         self.replays += 1
         if state is not None:
             state.step += self.steps
         synthesize_kernel.launches += self.launches
-        return tuple(t.clone() for t in self.out)
+        with span("eld.graph.outputs"):
+            return tuple(t.clone() for t in self.out)
 
     def _eager(self, state, inputs):
         main = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            out = self._run(state, inputs)
-        main.wait_stream(side)
-        for t in out:
-            t.record_stream(main)  # read on the main stream after this call
-        self.binding = self.bind(state, inputs)  # after the call: Adam's state exists
+        with span("eld.graph.eager"):
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                out = self._run(state, inputs)
+            main.wait_stream(side)
+            self.binding = self.bind(state, inputs)  # after the call: Adam's state exists
+        with span("eld.graph.outputs"):
+            for t in out:
+                t.record_stream(main)  # read on the main stream after this call
         return out
 
     def _capture(self, state, inputs):
-        if self.static:
-            # the graph's own input buffers, which each replay refills
-            self.inputs = {key: v.clone() for key, v in inputs.items()}
-            inputs = self.inputs
-        graph = torch.cuda.CUDAGraph()
-        for rng in self.slots:
-            for gen in rng.generators():
+        with span("eld.graph.capture"):
+            if self.static:
+                # the graph's own input buffers, which each replay refills
+                self.inputs = {key: v.clone() for key, v in inputs.items()}
+                inputs = self.inputs
+            graph = torch.cuda.CUDAGraph()
+            for rng in self.slots:
+                for gen in rng.generators():
+                    graph.register_generator_state(gen)
+            for gen in self.noise:
                 graph.register_generator_state(gen)
-        for gen in self.noise:
-            graph.register_generator_state(gen)
-        step, launches = (state.step if state is not None else 0), synthesize_kernel.launches
-        try:
-            with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
-                out = self._run(state, inputs)
-            self.launches = synthesize_kernel.launches - launches
-        finally:
-            # the capture ran the call's Python, not its device work
-            if state is not None:
-                state.step = step
-            synthesize_kernel.launches = launches
-        self.graph, self.out = graph, out
+            step, launches = (state.step if state is not None else 0), synthesize_kernel.launches
+            try:
+                with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
+                    out = self._run(state, inputs)
+                self.launches = synthesize_kernel.launches - launches
+            finally:
+                # the capture ran the call's Python, not its device work
+                if state is not None:
+                    state.step = step
+                synthesize_kernel.launches = launches
+            self.graph, self.out = graph, out
 
 
 def _mean_and(losses: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,13 +1,51 @@
 """Observability: running-mean meters, throughput, progress reporting
-(counterpart of ``eld_tpu/utils/logging.py``)."""
+(counterpart of ``eld_tpu/utils/logging.py``), and the program's named
+spans in a torch.profiler trace.
+
+Spans (``span``), each at a boundary of the pooled train path's host
+work, recorded only while a profiler records (``--profile``, or a
+profiler of the caller's own):
+
+  eld.epoch          one epoch of ``tools/train_syn.py::train_epochs``:
+                     the rate, the train call, the eval check
+  eld.pool.epoch     ``Engine.train_pool``, whole (args: the epoch)
+  eld.pool.call      one iteration of its loop: call i's seeds and launch,
+                     call i-1's drain (args: call i's first step)
+  eld.pool.read      the drain's reads of the losses: the host waits for
+                     the device
+  eld.pool.report    the drain's history, throughput, meters, progress
+                     and writer
+  eld.epoch.end      ``Engine._end_epoch``: the saves
+  eld.graph.bind     ``_GraphCall``: the binding's check
+  eld.graph.seeds    the reseeds and the seed buffer's copy
+  eld.graph.eager    a binding's first call, run eagerly
+  eld.graph.capture  its capture
+  eld.graph.replay   the input copies and the graph's launch
+  eld.graph.outputs  the outputs' copies (the eager call's stream marks)
+"""
 
 from __future__ import annotations
 
+import contextlib
 import os
 import socket
 import sys
 import time
 from datetime import datetime
+
+import torch
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str, args=None):
+    """``torch.profiler.record_function(name)`` while a profiler records,
+    else one shared no-op context: with no profiler a span costs one
+    check.  ``name`` is fixed; what varies goes in ``args`` (kept as its
+    string)."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(name, None if args is None else str(args))
 
 
 class AverageMeters:

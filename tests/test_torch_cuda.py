@@ -410,6 +410,50 @@ def test_captured_pooled_calls_equal_the_eager_loop(cuda_device, tmp_path, arch)
         assert torch.equal(v, pg[name]), name
 
 
+@pytest.mark.cuda
+def test_traced_pooled_epoch_names_its_calls_on_the_devices_clock(cuda_device, tmp_path):
+    """A warm pooled epoch (calls of 2, 2 and 2 steps, each a replay) under
+    torch.profiler: the epoch, each call, its replay and its read are
+    spans in the trace, and the kernels of each replay's graph launch
+    start after its ``eld.graph.replay`` span starts: the host's spans and
+    the device's operations share one clock."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    recs = onp.random.default_rng(4).integers(0, 65535, (6, 64, 64, 4), dtype=onp.uint16)
+    pool = {"clean": torch.from_numpy(recs).to(cuda_device)}
+    eng = Engine(Config(device="cuda", noise="eld", include=4, base_width=8, batch_size=2,
+                        bf16=True, is_train=True, no_log=True, no_verbose=True,
+                        checkpoints_dir=str(tmp_path), name="spans"))
+    eng.train_pool(pool, steps=6, steps_per_call=2)  # eager, capture, replay
+    torch.cuda.synchronize(cuda_device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng.train_pool(pool, steps=6, steps_per_call=2)
+        torch.cuda.synchronize(cuda_device)
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    spans = [e for e in events if e.get("cat") == "user_annotation"]
+    count = {n: sum(e["name"] == n for e in spans) for n in
+             ("eld.pool.epoch", "eld.pool.call", "eld.graph.replay", "eld.pool.read",
+              "eld.graph.eager", "eld.graph.capture")}
+    assert count == {"eld.pool.epoch": 1, "eld.pool.call": 3, "eld.graph.replay": 3,
+                     "eld.pool.read": 3, "eld.graph.eager": 0, "eld.graph.capture": 0}
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            kernels.setdefault(e["args"]["correlation"], []).append(e["ts"])
+    launches = [e for e in events
+                if e.get("cat") == "cuda_runtime" and e["name"] == "cudaGraphLaunch"]
+    for replay in (e for e in spans if e["name"] == "eld.graph.replay"):
+        (launch,) = [e for e in launches
+                     if replay["ts"] <= e["ts"] <= replay["ts"] + replay["dur"]]
+        first = min(kernels[launch["args"]["correlation"]])
+        assert first >= launch["ts"] >= replay["ts"]
+
+
 # the per-step calls: the rate set just before each step (None: unchanged);
 # step 0 runs eagerly, step 1 captures, the rest replay, one at rate 0
 _STEP_RATES = (None, None, None, 0.0, 1e-4, None)

@@ -299,7 +299,8 @@ def test_train_syn_cli_runs_two_steps_on_cpu(tmp_path):
 def test_profile_traces_and_leaves_the_parameters_unchanged(tmp_path, cli):
     """--profile writes a torch.profiler trace under save_dir/profile (of
     the first min(8, n) steps on the per-step path, of train_pool's first
-    call on the pooled one), and the traced run's parameters equal the
+    warm replays on the pooled one, here its one call, named by its
+    ``eld.pool.call`` span), and the traced run's parameters equal the
     same run's without the flag."""
     import json
 
@@ -334,6 +335,8 @@ def test_profile_traces_and_leaves_the_parameters_unchanged(tmp_path, cli):
     with open(os.path.join(eng.cfg.save_dir, "profile", f"{name}.pt.trace.json")) as f:
         events = json.load(f)["traceEvents"]
     assert any("conv" in e.get("name", "") for e in events)
+    if cli == "train_syn_pooled":
+        assert any(e.get("name") == "eld.pool.call" for e in events)
 
 
 def test_package_imports_without_jax_or_nvcc():
