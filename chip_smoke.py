@@ -28,7 +28,8 @@ Phases, one line or block of output each; any failure exits non-zero:
      10, the pooled trainer), 128 smooth patches held on the card, 2 epochs
      of 16 steps (calls of 10 and 6) for unet and 1 epoch for unet_s2d, the
      periodic SID eval on the indoor-15 ratio-100/300 names, and the pooled
-     per-step time beside phase 3b's;
+     per-step time beside phase 3b's, in calls that launch the conv
+     epilogue 36 times a step;
   5. the eval stack: the eval forward on the card against the CPU (pad and
      chop, unet and unet_s2d), test_sid on the card against the CPU over
      SID-geometry rawpacks, test_eld full-frame with --chop, and
@@ -36,8 +37,9 @@ Phases, one line or block of output each; any failure exits non-zero:
   6. the serving path and paired / sRGB training at full width, unet on
      full SID frames (1424x2128x4 packed): (a) the ISP (process, raw2rgb;
      gamma and the CRF) on the card against the CPU, and its ms; (b)
-     export_model from phase 4's .pt (f32, int8, f32 --chop), each
-     artifact on the card against the eager forward, the int8 denoised
+     export_model from phase 4's .pt (f32, int8, f32 --chop, bf16), each
+     artifact on the card against the eager forward and launching the
+     conv epilogue's kernel 18 times a forward, the int8 denoised
      PSNR within 0.05 dB of f32 and the int8 output against the f32 output
      (at least 40 dB), export seconds and sizes; (c) denoise --batch 2
      --io_threads 2 over two DNG and two rawpack full frames from the .pt
@@ -105,7 +107,7 @@ Phases, one line or block of output each; any failure exits non-zero:
      (no parameter moves at rate 0), state.step and K1 launches; (c)
      patches/s graph vs eager in turns, unet and unet_s2d at batch 8 and
      16 (host clock and CUDA events), and the device's idle share in one
-     profiled call of each;
+     profiled call of each, the conv epilogue launched 36 times a step;
  11. the per-step train step and the eval forward as CUDA graphs: (a)
      Engine.train per step, its own trainer (a graph per batch shape)
      against the trainer built with capture=False, unet and unet_s2d,
@@ -155,6 +157,19 @@ Phases, one line or block of output each; any failure exits non-zero:
      entry point, N launched ranks at 8 rows each on their own cards,
      bitwise equal, against one launched rank, and --device cuda:1
      --mesh_data 2 on cuda:1 and cuda:2;
+ 14. the conv epilogue's kernels (eld_tpu_torch/csrc/conv_epilogue.cu):
+     their build and, from a second build with -Xptxas -v, registers and
+     spills; at the main path's shapes (the outputs of unet's and
+     unet_s2d's five levels at batch 8, bf16) the forward with and without
+     z2 and the backward against the plain version (y and gz within one
+     bf16 ulp, the bias sum within 1e-5 of the channel's sum of |gz|), two
+     backward runs bit for bit; ``bias_lrelu`` itself, forward and
+     backward with z2, the same kernels and one launch counted each way;
+     the kernels' time alone (CUDA events, the
+     card spun first), the plain version's, and the PyTorch composition
+     they replace (``library_ms``: the bias add_, leaky_relu, its backward
+     and the bf16 bias-gradient sum), each beside the byte bound, per
+     shape and over a step's 18 epilogues;
 and prints the kernels' JSON line, the card line, and a last JSON line
 {"ok": true, "device": {...}}.  It imports nothing of JAX.
 """
@@ -714,13 +729,15 @@ def _write_sid_eval(root):
 def phase4(card, tmp, step_ms):
     """train_syn at its defaults (the pooled trainer) on unet and unet_s2d,
     with the periodic eval; returns the engines, the kernel launches and
-    the optimizer steps."""
+    the optimizer steps, and the conv epilogue's launches and steps in
+    the pooled calls timed here."""
     import torch
 
     from eld_tpu_torch.data import rawio
     from eld_tpu_torch.data.loader import pool_to_device
     from eld_tpu_torch.data.patchstore import PatchStore
     from eld_tpu_torch.models import build_arch
+    from eld_tpu_torch.models.epilogue import bias_lrelu
     from eld_tpu_torch.noise.kernels import synthesize_kernel
     from eld_tpu_torch.tools import train_syn
     from eld_tpu_torch.train.steps import fold_in, make_train_scan
@@ -737,6 +754,7 @@ def phase4(card, tmp, step_ms):
           f"{pool['clean'].numel() * 2 / 1e6:.1f} MB on the card", flush=True)
 
     engines, launches_total, steps_total = {}, 0, 0
+    epilogue = {"launches": 0, "steps": 0}
     for arch, epochs in (("unet", 2), ("unet_s2d", 1)):
         argv = ["--traindir", traindir, "--evaldir", evaldir,
                 "--checkpoints_dir", os.path.join(tmp, "ck"), "--name", arch, "--netG", arch,
@@ -780,6 +798,7 @@ def phase4(card, tmp, step_ms):
         scan = make_train_scan(engine.model, noise_model="eld", bank=engine.bank, batch=8,
                                steps_per_call=10, autocast_dtype=torch.bfloat16)
         rates, per_step = [], []
+        bias_lrelu.launches = 0
         for call in range(5):
             seeds = [fold_in(SEED, 10_000 + 10 * call + j) for j in range(10)]
             torch.cuda.synchronize()
@@ -790,13 +809,19 @@ def phase4(card, tmp, step_ms):
             if call >= 2:  # warm-up: the eager first call, then the graph's capture
                 rates.append(80 / dt)
                 per_step.append(dt / 10 * 1e3)
+        # 18 epilogues a step, one launch each way: the eager call's own,
+        # the capture's none, each replay the graph's
+        check(bias_lrelu.launches == 36 * 50,
+              f"{arch}: {bias_lrelu.launches} conv epilogue launches in 50 pooled steps")
+        epilogue["launches"] += bias_lrelu.launches
+        epilogue["steps"] += 50
         print(f"[4] {arch}: pooled calls of 10 steps (bf16, batch 8, 512^2): "
               f"{', '.join(f'{r:.1f}' for r in rates)} patches/s; per step "
               f"{', '.join(f'{m:.2f}' for m in per_step)} ms (phase 3b, per-step "
               f"path, batch on the card: {', '.join(f'{m:.2f}' for m in step_ms)} ms) "
-              f"on {card}", flush=True)
+              f"on {card}; conv epilogue launches {bias_lrelu.launches}", flush=True)
         engines[arch] = engine
-    return engines, launches_total, steps_total
+    return engines, launches_total, steps_total, epilogue
 
 
 # ---- phase 5 ------------------------------------------------------------
@@ -997,12 +1022,14 @@ def _noisy_frame(seed):
 
 
 def phase6b(card, tmp, ckpt):
-    """export_model at full frame (f32, int8, f32 --chop), each artifact on
-    the card against the eager forward; the int8 PSNR gate."""
+    """export_model at full frame (f32, int8, f32 --chop, bf16), each
+    artifact on the card against the eager forward, and running the conv
+    epilogue's kernel (18 launches a forward); the int8 PSNR gate."""
     import torch
 
     from eld_tpu_torch import export
     from eld_tpu_torch.models import build_arch
+    from eld_tpu_torch.models.epilogue import bias_lrelu
     from eld_tpu_torch.ops.metrics import psnr
     from eld_tpu_torch.tools import export_model
     from eld_tpu_torch.train.checkpoints import load_params
@@ -1010,7 +1037,8 @@ def phase6b(card, tmp, ckpt):
 
     h, w = FULL_FRAME
     arts = {}
-    for tag, extra in (("f32", []), ("int8", ["--quantize", "int8"]), ("chop", ["--chop"])):
+    for tag, extra in (("f32", []), ("int8", ["--quantize", "int8"]), ("chop", ["--chop"]),
+                       ("bf16", ["--bf16"])):
         path = os.path.join(tmp, f"unet_{tag}.eldx")
         t0 = time.perf_counter()
         export_model.main(["--model_path", ckpt, "--height", str(h), "--width", str(w),
@@ -1023,7 +1051,11 @@ def phase6b(card, tmp, ckpt):
     model.eval()
     clean, noisy = _noisy_frame(SEED + 3)
     eager = {"f32": make_eval_forward(model), "chop": make_eval_forward(model, chop=True),
-             "int8": export.serving_module(model, quantize="int8")}
+             "int8": export.serving_module(model, quantize="int8"),
+             "bf16": export.serving_module(model, bf16=True)}
+    # bf16: the artifact and the eager module run the same ops in bf16, but
+    # cuDNN may pick other algorithms; 2e-2 is five bf16 steps at 1.0
+    tols = {"bf16": 2e-2}
     outs = {}
     for tag, art in arts.items():
         fn, meta = export.load_denoiser(art["path"], "cuda")
@@ -1031,15 +1063,19 @@ def phase6b(card, tmp, ckpt):
               and meta["chop"] == (tag == "chop"), f"artifact {tag} meta {meta}")
         with torch.no_grad():
             want = eager[tag](noisy)
+        bias_lrelu.launches = 0
         outs[tag] = fn(noisy)
+        check(bias_lrelu.launches == 18,
+              f"artifact {tag}: {bias_lrelu.launches} conv epilogue launches in a forward")
         err = float((outs[tag] - want).abs().max())
-        check(outs[tag].shape == noisy.shape and err <= 1e-4,
-              f"artifact {tag} vs the eager forward: max |err| {err}")
+        tol = tols.get(tag, 1e-4)
+        check(outs[tag].shape == noisy.shape and err <= tol,
+              f"artifact {tag} vs the eager forward: max |err| {err} (tol {tol})")
         art["err"] = err
         art["ms"] = cuda_ms(lambda: fn(noisy), reps=5)
         art["eager_ms"] = cuda_ms(lambda: eager[tag](noisy), reps=5)
         print(f"[6b] export_model {tag}: {art['export_s']:.2f} s, {art['mb']:.2f} MB; on the "
-              f"card == eager forward within {err:.3g} (tol 1e-4); forward ms (median of 5, "
+              f"card == eager forward within {err:.3g} (tol {tol}); forward ms (median of 5, "
               f"CUDA events) artifact {art['ms']:.2f}, eager {art['eager_ms']:.2f}", flush=True)
     db = {tag: float(psnr(outs[tag].clamp(0, 1), clean, 1.0)) for tag in ("f32", "int8")}
     delta = abs(db["f32"] - db["int8"])
@@ -2351,10 +2387,11 @@ def phase10c(card, tmp, pool):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from eld_tpu_torch.models.epilogue import bias_lrelu
     from eld_tpu_torch.noise.kernels import synthesize_kernel
     from eld_tpu_torch.train.steps import fold_in, make_train_scan
 
-    results, launches_total, steps_total = {}, 0, 0
+    results, launches_total, steps_total, epilogue_total = {}, 0, 0, 0
     for arch in ("unet", "unet_s2d"):
         for batch in (8, 16):
             eng = _graph_engine(tmp, arch, batch, f"g10c_{arch}_{batch}")
@@ -2363,7 +2400,7 @@ def phase10c(card, tmp, pool):
                                         autocast_dtype=torch.bfloat16,
                                         capture=arm == "graph")  # False: the eager loop
                    for arm in ("eager", "graph")}
-            synthesize_kernel.launches = 0
+            synthesize_kernel.launches = bias_lrelu.launches = 0
             step0 = eng.iterations
 
             def call(arm):
@@ -2409,6 +2446,10 @@ def phase10c(card, tmp, pool):
             check(synthesize_kernel.launches == eng.iterations - step0,
                   f"10c {arch} b{batch}: {synthesize_kernel.launches} K1 launches for "
                   f"{eng.iterations - step0} steps")
+            check(bias_lrelu.launches == 36 * (eng.iterations - step0),
+                  f"10c {arch} b{batch}: {bias_lrelu.launches} conv epilogue launches for "
+                  f"{eng.iterations - step0} steps")
+            epilogue_total += bias_lrelu.launches
             med = {arm: sorted(v)[len(v) // 2] for arm, v in rates.items()}
             results[f"{arch}_b{batch}"] = {"rates": rates, "event_ms": event_ms, "median": med,
                                           "graph_over_eager": med["graph"] / med["eager"],
@@ -2431,7 +2472,8 @@ def phase10c(card, tmp, pool):
                   f"{idle['graph']['kernels']} kernel names) on {card}", flush=True)
             del eng, fns
             torch.cuda.empty_cache()
-    return {"launches": launches_total, "steps": steps_total, "results": results}
+    return {"launches": launches_total, "steps": steps_total, "results": results,
+            "epilogue_launches": epilogue_total}
 
 
 def phase10(card, tmp):
@@ -2453,7 +2495,9 @@ def phase10(card, tmp):
         f"(CUDAGraph.register_generator_state)", flush=True)
     print("[10] " + json.dumps({"10a": out["10a"], "10c": out["10c"]["results"]}), flush=True)
     return {"launches": out["10b"]["launches"] + out["10c"]["launches"],
-            "steps": out["10b"]["steps"] + out["10c"]["steps"], "10a": out["10a"]}
+            "steps": out["10b"]["steps"] + out["10c"]["steps"], "10a": out["10a"],
+            "epilogue": {"launches": out["10c"]["epilogue_launches"],
+                         "steps": out["10c"]["steps"]}}
 
 
 # ---- phase 11 -----------------------------------------------------------
@@ -3538,7 +3582,7 @@ def main():
     s = phase3(card)
     step_ms = phase3b(card)
     with tempfile.TemporaryDirectory() as tmp:
-        engines, pooled_launches, pooled_steps = phase4(card, tmp, step_ms)
+        engines, pooled_launches, pooled_steps, epilogue4 = phase4(card, tmp, step_ms)
         p5 = phase5(card, tmp, engines)
         secs = {"start": time.perf_counter()}
         isp_ms = phase6a(card)
@@ -3575,7 +3619,9 @@ def main():
         p12 = phase12(card, tmp, os.path.join(tmp, "train11", "SID_Sony_Raw.eps"))
         torch.cuda.empty_cache()
         p13 = phase13(card, tmp, p12)
+    p14 = phase14(card)
 
+    from eld_tpu_torch.models import epilogue
     from eld_tpu_torch.noise.kernels import REPLACES, SOURCE_PATH
 
     launches = (s["launches"] + pooled_launches + srgb_launches + p7["7a"]["launches"]
@@ -3587,6 +3633,8 @@ def main():
     steps = (s["steps"] + pooled_steps + srgb_steps + p7["7a"]["steps"]
              + p7["7b"]["rank_steps"] + p8["steps"] + p9["steps"] + p10["steps"]
              + p11["steps"] + p12["steps"] + p13["steps"])
+    epi_launches = epilogue4["launches"] + p10["epilogue"]["launches"]
+    epi_steps = epilogue4["steps"] + p10["epilogue"]["steps"]
     kernels = {"kernels": [{
         "name": "noise_synth", "route": "cuda", "source": SOURCE_PATH, "replaces": REPLACES,
         "launches": launches, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
@@ -3599,13 +3647,176 @@ def main():
         "bound_ms_demo": p8["8k"]["bound_ms"], "launches_per_step": launches / steps,
         "max_abs_err_dev_seed": p10["10a"]["max_abs_err"],
         "kernel_ms_host_seed_10a": p10["10a"]["kernel_ms_host_seed"],
-        "kernel_ms_dev_seed": p10["10a"]["kernel_ms_dev_seed"]}]}
+        "kernel_ms_dev_seed": p10["10a"]["kernel_ms_dev_seed"]}, {
+        "name": "conv_epilogue", "route": "cuda", "source": epilogue.SOURCE_PATH,
+        "replaces": None,  # XLA fuses the epilogue on the TPU; no Pallas kernel
+        # the pooled main path's own calls (phases 4 and 10c), counted from 0
+        "launches": epi_launches, "launches_per_step": epi_launches / epi_steps,
+        "step_ms": p14["step"],
+        "registers": p14["registers"], "build_s": p14["build_s"]}]}
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+# ---- phase 14 -----------------------------------------------------------
+
+HBM_GBS = 3350.0  # H100 SXM5 80GB HBM3, the data sheet's peak
+# the outputs of the five levels' 3x3 convs at batch 8 (N, C, H, W)
+EPILOGUE_SHAPES = {
+    "unet": [(8, 32, 512, 512), (8, 64, 256, 256), (8, 128, 128, 128), (8, 256, 64, 64),
+             (8, 512, 32, 32)],
+    "unet_s2d": [(8, 32, 256, 256), (8, 64, 128, 128), (8, 128, 64, 64), (8, 256, 32, 32),
+                 (8, 512, 16, 16)],
+}
+
+
+def _epilogue_kernel_name(mangled: str) -> str:
+    """bias_lrelu_fwd<T, V, z2> / lrelu_bwd_partial<T, V> / sum_partials."""
+    import re
+
+    for name in ("bias_lrelu_fwd", "lrelu_bwd_partial", "sum_partials"):
+        if name in mangled:
+            break
+    else:
+        return mangled
+    if name == "sum_partials":
+        return name
+    dtype = "bf16" if "bfloat16" in mangled else "f32"
+    v = re.search(r"Li(\d+)E", mangled)
+    args = [dtype, v.group(1) if v else "?"]
+    if name == "bias_lrelu_fwd":
+        args.append("z2" if "Lb1E" in mangled else "z")
+    return f"{name}<{', '.join(args)}>"
+
+
+def _ulps_bf16(a, b) -> int:
+    """The largest distance in bf16 steps between same-signed values."""
+    import torch
+
+    ia, ib = (t.contiguous().view(torch.int16).to(torch.int32) for t in (a, b))
+    return int((ia - ib).abs().max())
+
+
+def phase14(card):
+    import torch
+    import torch.nn.functional as F
+
+    from eld_tpu_torch._paths import CSRC_DIR
+    from eld_tpu_torch.models import epilogue
+
+    t0 = time.perf_counter()
+    lib = epilogue.load_library()
+    build_s = time.perf_counter() - t0
+    out_dir = os.path.join(HERE, "build", "eld_tpu_torch", "ptxas")
+    os.makedirs(out_dir, exist_ok=True)
+    _, regs = _build_verbose(os.path.join(CSRC_DIR, "conv_epilogue.cu"), out_dir)
+    regs = [dict(r, kernel=_epilogue_kernel_name(r["kernel"])) for r in regs]
+    print(f"[14] built conv_epilogue in {build_s:.2f} s; " + json.dumps(regs), flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def draw(shape):
+        t = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        return t.contiguous(memory_format=torch.channels_last)
+
+    rows, step = [], {}
+    for arch, shapes in EPILOGUE_SHAPES.items():
+        totals = {"kernel_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+        for level, shape in enumerate(shapes, start=1):
+            n, c, h, w = shape
+            z, z2, gy = draw(shape), draw(shape), draw(shape)
+            bias = torch.randn(c, generator=gen, device=dev)
+            nbytes = z.numel() * z.element_size()
+            rec = {"arch": arch, "shape": list(shape)}
+            for split in (False, True):
+                zz = z2 if split else None
+                y = epilogue.launch_forward(lib, z, bias, zz)
+                ulps = _ulps_bf16(y, epilogue.plain_forward(z, bias, zz))
+                check(ulps <= 1, f"[14] {arch} {shape} forward split={split}: {ulps} ulps")
+                tag = "fwd_z2" if split else "fwd"
+                rec[f"{tag}_ulps"] = ulps
+                rec[f"{tag}_ms"] = cuda_ms(lambda: epilogue.launch_forward(lib, z, bias, zz),
+                                           spin=True)
+                rec[f"{tag}_plain_ms"] = cuda_ms(lambda: epilogue.plain_forward(z, bias, zz),
+                                                 spin=True)
+                rec[f"{tag}_bound_ms"] = (3 if split else 2) * nbytes / HBM_GBS / 1e6
+            y = epilogue.launch_forward(lib, z, bias, None)
+            gz, gbias = epilogue.launch_backward(lib, gy, y)
+            gz2, gbias2 = epilogue.launch_backward(lib, gy, y)
+            check(torch.equal(gz, gz2) and torch.equal(gbias, gbias2),
+                  f"[14] {arch} {shape}: two backward runs differ")
+            gz_ref, gbias_ref = epilogue.plain_backward(gy, y)
+            rec["bwd_ulps"] = _ulps_bf16(gz, gz_ref)
+            check(rec["bwd_ulps"] <= 1, f"[14] {arch} {shape} backward: {rec['bwd_ulps']} ulps")
+            rel = ((gbias - gbias_ref).abs() / gz_ref.float().abs().sum((0, 2, 3))).max()
+            rec["gbias_rel_err"] = float(rel)
+            check(rec["gbias_rel_err"] <= 1e-5, f"[14] {arch} {shape} bias sum: {rel}")
+            # the wrapper as the model calls it, split's z2 included: the
+            # same kernels, one launch counted each way, and the gradients
+            # of all three inputs
+            zg, z2g, bg = (t.detach().requires_grad_(True) for t in (z, z2, bias))
+            before = epilogue.bias_lrelu.launches
+            yw = epilogue.bias_lrelu(zg, bg, z2g)
+            yw.backward(gy)
+            rec["wrapper_launches"] = epilogue.bias_lrelu.launches - before
+            check(rec["wrapper_launches"] == 2,
+                  f"[14] {arch} {shape}: bias_lrelu counted {rec['wrapper_launches']} launches")
+            check(torch.equal(yw, epilogue.launch_forward(lib, z, bias, z2)),
+                  f"[14] {arch} {shape}: bias_lrelu's forward is not the kernel's")
+            gz_w, gbias_w = epilogue.plain_backward(gy, yw.detach())
+            rec["wrapper_ulps"] = max(_ulps_bf16(yw, epilogue.plain_forward(z, bias, z2)),
+                                      _ulps_bf16(zg.grad, gz_w))
+            rel = ((bg.grad - gbias_w).abs() / gz_w.float().abs().sum((0, 2, 3))).max()
+            rec["wrapper_gbias_rel_err"] = float(rel)
+            check(rec["wrapper_ulps"] <= 1 and torch.equal(z2g.grad, zg.grad)
+                  and bg.grad.dtype == torch.float32 and rec["wrapper_gbias_rel_err"] <= 1e-5,
+                  f"[14] {arch} {shape}: bias_lrelu against the plain version: "
+                  f"{rec['wrapper_ulps']} ulps, bias sum {rel}")
+            del zg, z2g, bg, yw, gz_w
+            rec["bwd_ms"] = cuda_ms(lambda: epilogue.launch_backward(lib, gy, y), spin=True)
+            rec["bwd_plain_ms"] = cuda_ms(lambda: epilogue.plain_backward(gy, y), spin=True)
+            rec["bwd_bound_ms"] = 3 * nbytes / HBM_GBS / 1e6
+            # what ran before: cuDNN's conv output took the bias in bf16 (add_ on
+            # the channels_last output), then leaky_relu; backward
+            # leaky_relu_backward on the pre-activation and the bias gradient
+            # summed in bf16
+            b16 = bias.to(torch.bfloat16).reshape(1, -1, 1, 1)
+            pre = z.clone()
+
+            def library_fwd(split):
+                t = pre.clone() if not split else pre + z2
+                t.add_(b16)
+                return F.leaky_relu(t, 0.2)
+
+            def library_bwd():
+                g = torch.ops.aten.leaky_relu_backward(gy, pre, 0.2, False)
+                return g, g.sum((0, 2, 3))
+
+            # the clone is the conv's own output write, not the epilogue's
+            clone_ms = cuda_ms(lambda: pre.clone(), spin=True)
+            rec["fwd_library_ms"] = cuda_ms(lambda: library_fwd(False), spin=True) - clone_ms
+            rec["fwd_z2_library_ms"] = cuda_ms(lambda: library_fwd(True), spin=True)
+            rec["bwd_library_ms"] = cuda_ms(library_bwd, spin=True)
+            rows.append(rec)
+            # a step: levels 1-5 two plain epilogues each; levels 6-9 (the
+            # shapes of levels 4..1) one with z2 and one without
+            decoder = 1 if level < 5 else 0
+            for key, part in (("kernel_ms", ""), ("plain_ms", "plain_"),
+                              ("library_ms", "library_"), ("bound_ms", "bound_")):
+                fwd = rec[f"fwd_{part}ms"] if part else rec["fwd_ms"]
+                fwd2 = rec[f"fwd_z2_{part}ms"] if part else rec["fwd_z2_ms"]
+                bwd = rec[f"bwd_{part}ms"] if part else rec["bwd_ms"]
+                totals[key] += 2 * (fwd + bwd) + decoder * (fwd2 + fwd + 2 * bwd)
+            print("[14] " + json.dumps(rec), flush=True)
+            del z, z2, gy, y, gz, gz2, gz_ref, pre
+        step[arch] = totals
+        print(f"[14] {arch} b8, a step's 18 epilogues: " + json.dumps(
+            {k: round(v, 4) for k, v in totals.items()}) + f"  ({card})", flush=True)
+    return {"build_s": build_s, "registers": regs, "rows": rows, "step": step}
 
 
 if __name__ == "__main__":

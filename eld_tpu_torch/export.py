@@ -24,7 +24,9 @@ Artifact format (``.eldx``): a zip holding ``meta.json`` (arch, geometry,
 dtypes, parameter count) and ``model.pt2`` (``torch.export.save``).  A
 program traced on one device serves on another: ``load_denoiser`` moves it
 with ``torch.export.passes.move_to_device_pass``.  eld_tpu's own artifacts
-(a ``model.stablehlo`` entry) are refused.
+(a ``model.stablehlo`` entry) are refused.  The program calls the conv
+epilogue's operators (``models/epilogue.py``, imported here so that a
+load finds them), which run the hand-written kernel on the card.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from torch import nn
 from torch.nn.utils import parametrize
 
 from eld_tpu_torch.config import torch_device
+from eld_tpu_torch.models import epilogue  # noqa: F401  (registers the operators)
 from eld_tpu_torch.ops.chop import forward_chop
 
 # 1 is eld_tpu's StableHLO artifact; 2 this package's torch.export artifact

@@ -13,6 +13,11 @@ reference's init.  ``forward`` takes and returns NHWC like the Flax
 model; inside, ``x.permute(0, 3, 1, 2)`` of a contiguous NHWC tensor is
 a ``channels_last`` NCHW view, which cuDNN takes without a copy.
 
+Each 3x3 convolution runs without its bias; the bias, the `split`
+decoder's sum and LeakyReLU follow as one epilogue, one hand-written
+kernel each way on the card (``models/epilogue.py``).  The parameters
+and their names stay the reference's.
+
 The options of the Flax model are kept, each an exact re-parameterization
 of the same weights except ``skip_dtype``:
   * ``skip_mode="split"``: the decoder's first conv runs as two convs over
@@ -33,10 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-
-def lrelu(x: torch.Tensor) -> torch.Tensor:
-    """LeakyReLU(0.2) == max(0.2x, x), the reference's activation."""
-    return F.leaky_relu(x, 0.2)
+from eld_tpu_torch.models.epilogue import bias_lrelu
 
 
 def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
@@ -55,17 +57,25 @@ def depth_to_space(x: torch.Tensor, block: int = 2) -> torch.Tensor:
     return x.permute(0, 1, 3, 2, 4, 5).reshape(n, h * block, w * block, c)
 
 
+def _conv3x3(x, weight):
+    """A 3x3 convolution without its bias, on the channels_last view of
+    ``x`` (a copy only where ``x`` is not already one), so that the output
+    is dense NHWC, as ``bias_lrelu``'s kernel takes it."""
+    return F.conv2d(x.contiguous(memory_format=torch.channels_last), weight, None, padding=1)
+
+
 def _conv_pair(x, c1: nn.Conv2d, c2: nn.Conv2d):
-    return lrelu(c2(lrelu(c1(x))))
+    y = bias_lrelu(_conv3x3(x, c1.weight), c1.bias)
+    return bias_lrelu(_conv3x3(y, c2.weight), c2.bias)
 
 
 def _split_conv_pair(up, skip, c1: nn.Conv2d, c2: nn.Conv2d):
     """conv(cat([up, skip])) == conv_a(up) + conv_b(skip), kernel sliced on
-    its input channels — exact up to summation order."""
+    its input channels — exact up to summation order; the sum is part of
+    the epilogue."""
     ca = up.shape[1]
-    y = (F.conv2d(up, c1.weight[:, :ca], None, padding=1)
-         + F.conv2d(skip, c1.weight[:, ca:], c1.bias, padding=1))
-    return lrelu(c2(lrelu(y)))
+    y = bias_lrelu(_conv3x3(up, c1.weight[:, :ca]), c1.bias, _conv3x3(skip, c1.weight[:, ca:]))
+    return bias_lrelu(_conv3x3(y, c2.weight), c2.bias)
 
 
 def _d2s_upsample(x, up: nn.ConvTranspose2d):

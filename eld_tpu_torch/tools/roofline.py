@@ -41,6 +41,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from eld_tpu_torch.config import torch_device
 from eld_tpu_torch.models import build_arch
+from eld_tpu_torch.models.epilogue import bias_lrelu
 from eld_tpu_torch.noise.kernels import PARAM_STRIDE, synthesize_kernel
 from eld_tpu_torch.noise.params import load_camera_params
 from eld_tpu_torch.train.state import create_train_state
@@ -94,18 +95,20 @@ def step_cost(step, state, batch, seed: int = 0) -> dict:
     backward (no input gradient for the first conv, whose input needs
     none), and any matmul; elementwise ops, pooling, the loss and Adam
     count none.  Bytes are ``ByteCounter``'s op-level traffic, which is
-    more than a fused program moves.  K1 is launched through ctypes, so
-    neither counter sees it: each launch during the step adds
-    ``k1_bytes`` of the batch, reported alone as ``k1_bytes_per_step``.
+    more than a fused program moves.  K1 and, on a card, the conv
+    epilogue's kernels are launched through ctypes, so neither counter sees
+    them: each K1 launch during the step adds ``k1_bytes`` of the batch,
+    reported alone as ``k1_bytes_per_step``, and the epilogue's launches
+    add the bytes they move (``bias_lrelu.bytes``).
     ``k1_launches`` is the launches in the counted step; 0 means the
     noise took the plain path, whose ops both counters see."""
-    before = synthesize_kernel.launches
+    before, epilogue = synthesize_kernel.launches, bias_lrelu.bytes
     with FlopCounterMode(display=False) as flops, ByteCounter() as nbytes:
         step(state, batch, seed)
     launches = synthesize_kernel.launches - before
     k1 = launches * k1_bytes(batch["clean"].shape)
     return {"flops_per_step": float(flops.get_total_flops()),
-            "bytes_per_step": float(nbytes.bytes + k1),
+            "bytes_per_step": float(nbytes.bytes + k1 + bias_lrelu.bytes - epilogue),
             "k1_bytes_per_step": float(k1), "k1_launches": launches}
 
 

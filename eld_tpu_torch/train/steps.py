@@ -56,6 +56,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from eld_tpu_torch.models.epilogue import bias_lrelu
 from eld_tpu_torch.models.losses import init_loss
 from eld_tpu_torch.noise.kernels import seed_int64, synthesize_kernel
 from eld_tpu_torch.noise.model import synthesize
@@ -448,8 +449,9 @@ class _GraphCall:
     The first call for a binding runs eagerly on a side stream, a real
     call with its own seeds; the next captures (executing nothing) and
     replays, and every later call replays.  A replay runs no Python, so
-    the call advances ``state.step`` by ``steps`` and
-    ``synthesize_kernel.launches`` by the launches the graph holds.  A call
+    the call advances ``state.step`` by ``steps``, and
+    ``synthesize_kernel.launches`` and ``bias_lrelu.launches`` (the conv
+    epilogue's, ``models/epilogue.py``) by the launches the graph holds.  A call
     returns copies of the graph's outputs, which the next replay
     overwrites.  ``pool``: a memory pool shared with other graphs that
     replay one at a time on one stream (None: the graph's own).  A capture
@@ -483,7 +485,8 @@ class _GraphCall:
         self.binding: Optional[List[torch.Tensor]] = None
         self.inputs: Dict[str, torch.Tensor] = {}  # the static input buffers
         self.out: Tuple[torch.Tensor, ...] = ()  # the graph's outputs
-        self.launches = 0
+        self.launches = 0  # K1's
+        self.epilogue_launches = 0
         self.replays = 0
 
     def reset(self):
@@ -562,6 +565,7 @@ class _GraphCall:
         if state is not None:
             state.step += self.steps
         synthesize_kernel.launches += self.launches
+        bias_lrelu.launches += self.epilogue_launches
         with span("eld.graph.outputs"):
             return tuple(t.clone() for t in self.out)
 
@@ -591,16 +595,18 @@ class _GraphCall:
                     graph.register_generator_state(gen)
             for gen in self.noise:
                 graph.register_generator_state(gen)
-            step, launches = (state.step if state is not None else 0), synthesize_kernel.launches
+            step = state.step if state is not None else 0
+            launches, epilogue = synthesize_kernel.launches, bias_lrelu.launches
             try:
                 with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
                     out = self._run(state, inputs)
                 self.launches = synthesize_kernel.launches - launches
+                self.epilogue_launches = bias_lrelu.launches - epilogue
             finally:
                 # the capture ran the call's Python, not its device work
                 if state is not None:
                     state.step = step
-                synthesize_kernel.launches = launches
+                synthesize_kernel.launches, bias_lrelu.launches = launches, epilogue
             self.graph, self.out = graph, out
 
 
@@ -678,15 +684,30 @@ def make_train_scan(
                     lambda st, pl, draws, grads: _mean_and(run(st, pl, draws, grads)), dev,
                     bind=_binding, slots=steps_per_call, steps=steps_per_call, shard=shard,
                     all_reduce=parallel)
-            mean, multi.losses = call(state, pool, seeds)
-            return {"Pixel": mean, "PixelLast": multi.losses[-1]}
+            mean, losses = call(state, pool, seeds)
+            return {"Pixel": mean, "PixelLast": losses[-1]}, losses
         # the process's StepRandom, reseeded from each step's seed just before its step
-        multi.losses = run(state, pool, ((step_random(dev, s), rank_noise_seed(s, *shard))
-                                         for s in seeds))
-        return {"Pixel": multi.losses.mean(), "PixelLast": multi.losses[-1]}
+        losses = run(state, pool, ((step_random(dev, s), rank_noise_seed(s, *shard))
+                                   for s in seeds))
+        return {"Pixel": losses.mean(), "PixelLast": losses[-1]}, losses
 
-    multi.graphs = graphs  # the card's graphs, by device
-    return multi
+    return _Trainer(multi, graphs)
+
+
+class _Trainer:
+    """``make_train_scan``'s function: ``graphs`` the card's graphs by
+    device, ``losses`` the last call's K losses.  An object rather than a
+    closure that names itself, so that nothing refers to a dropped trainer
+    and its graphs and their memory go with its last reference."""
+
+    def __init__(self, call, graphs: Dict[torch.device, "_GraphCall"]):
+        self._call, self.graphs = call, graphs
+        self.losses: Optional[torch.Tensor] = None
+
+    def __call__(self, state: TrainState, pool: Dict[str, torch.Tensor],
+                 seeds: Sequence[int]) -> Dict[str, torch.Tensor]:
+        metrics, self.losses = self._call(state, pool, seeds)
+        return metrics
 
 
 def edge_pad(x: torch.Tensor, hp: int, wp: int) -> torch.Tensor:

@@ -34,6 +34,7 @@ from eld_tpu.noise import load_camera_params as jax_bank
 from eld_tpu.tools import bench_variants as jax_bench_variants
 from eld_tpu.train import create_train_state as jax_create_train_state
 from eld_tpu.train import make_train_step as jax_make_train_step
+from eld_tpu_torch.models.epilogue import bias_lrelu
 from eld_tpu_torch.noise.kernels import synthesize_kernel
 from eld_tpu_torch.tools import bench_variants, roofline
 
@@ -330,6 +331,20 @@ def test_step_cost_adds_k1_bytes_per_launch(monkeypatch):
     assert cost["k1_launches"] == 1 and cost["flops_per_step"] == 0
     assert cost["k1_bytes_per_step"] == cost["bytes_per_step"] == 2 * 2 * 64 * 64 * 4 * 4 \
         + 2 * 12 * 4
+
+
+def test_step_cost_adds_the_conv_epilogues_kernel_bytes(monkeypatch):
+    """A step whose conv epilogue runs its kernels (their wrapper adds the
+    bytes each launch moves) gets those bytes added: the operator-level
+    counter does not see a launch through ctypes."""
+    monkeypatch.setattr(bias_lrelu, "bytes", 0)
+
+    def step(state, batch, seed):
+        bias_lrelu.bytes += 1000
+        return {}
+
+    cost = roofline.step_cost(step, None, {"clean": torch.zeros((2, 8, 8, 4))})
+    assert cost["bytes_per_step"] == 1000 and cost["k1_launches"] == 0
 
 
 # ---- roofline's record --------------------------------------------------------

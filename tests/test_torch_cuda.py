@@ -1,4 +1,5 @@
-"""The port's noise kernel (and its device-seed entry), pooled trainer
+"""The port's noise kernel (and its device-seed entry), the conv epilogue's
+kernels, pooled trainer
 and per-step train step (and their CUDA graphs against the eager
 paths, one process and data-parallel in a world-1 NCCL group), eval
 forward (and its CUDA graph), ISP, serving
@@ -25,7 +26,8 @@ from eld_tpu_torch.config import Config
 from eld_tpu_torch.core import emor, isp
 from eld_tpu_torch.data.loader import pool_to_device
 from eld_tpu_torch.data.patchstore import PatchStore, PatchStoreWriter
-from eld_tpu_torch.models import build_arch
+from eld_tpu_torch.models import build_arch, epilogue
+from eld_tpu_torch.models.epilogue import bias_lrelu
 from eld_tpu_torch.noise.kernels import kernel_draws, seed_tensor, synthesize_kernel
 from eld_tpu_torch.noise.model import noise_core
 from eld_tpu_torch.noise.params import load_camera_params, sample_params_batch
@@ -612,3 +614,97 @@ def test_data_parallel_graph_equals_eager_ddp_in_a_nccl_group(cuda_device, nccl_
     assert (rg, re_) == (n - 1, 0) and sg == se == ng == ne == n * k
     assert all(torch.equal(a, b) for a, b in zip(lg, le))
     assert all(torch.equal(a, b) for a, b in zip(pg, pe))
+
+
+# ---- the conv epilogue's kernels (models/epilogue.py) ---------------------------
+
+# unet's 18 epilogues at batch 8 (each level's output, with z2 in the first
+# conv of levels 6-9); the scalar path (C = 12), one chunk a row (C = 4 f32,
+# 8 bf16), chunks in several groups (C = 2304)
+EPILOGUE_SHAPES = [(8, 32, 512, 512), (8, 64, 256, 256), (8, 128, 128, 128), (8, 256, 64, 64),
+                   (8, 512, 32, 32), (3, 12, 7, 9), (2, 4, 16, 16), (2, 8, 5, 3), (2, 2304, 3, 5)]
+
+
+def _epilogue_inputs(device, shape, dtype, split):
+    gen = torch.Generator(device=device).manual_seed(sum(shape))
+
+    def draw(s):
+        t = torch.randn(s, generator=gen, device=device).to(dtype)
+        return t.contiguous(memory_format=torch.channels_last) if len(s) == 4 else t
+
+    return draw(shape), (draw(shape) if split else None), draw(shape[1:2]).float(), draw(shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("split", [False, True], ids=["z", "z+z2"])
+@pytest.mark.parametrize("shape", EPILOGUE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_conv_epilogue_kernels_equal_the_plain_version(cuda_device, shape, split, dtype):
+    """The forward and backward kernels against the plain version on the
+    same inputs (the backward's on the kernel's y).  y and gz within one
+    ulp of the working dtype (rtol eps, atol 0): both compute in f32 and
+    round once, 0 expected.  gbias within 1e-5 of the channel's sum of |gz|:
+    the two sum 2M values a channel in different orders, and a blocked f32
+    sum's rounding stays far below that."""
+    z, z2, b, gy = _epilogue_inputs(cuda_device, shape, dtype, split)
+    lib = epilogue.load_library()
+    y = epilogue.launch_forward(lib, z, b, z2)
+    gz, gbias = epilogue.launch_backward(lib, gy, y)
+    y_ref = epilogue.plain_forward(z, b, z2)
+    gz_ref, gbias_ref = epilogue.plain_backward(gy, y)
+    torch.cuda.synchronize(cuda_device)
+    eps = torch.finfo(dtype).eps
+    assert y.is_contiguous(memory_format=torch.channels_last) and y.dtype == dtype
+    torch.testing.assert_close(y, y_ref, rtol=eps, atol=0)
+    torch.testing.assert_close(gz, gz_ref, rtol=eps, atol=0)
+    bound = 1e-5 * gz_ref.float().abs().sum((0, 2, 3))
+    assert gbias.dtype == torch.float32
+    assert bool(((gbias - gbias_ref).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_conv_epilogue_backward_is_bit_identical_run_to_run(cuda_device, dtype):
+    """No float atomics: two backward runs on the same input give the same
+    bits, gz and the bias sum alike."""
+    for shape in [(8, 32, 512, 512), (8, 512, 32, 32), (3, 12, 7, 9)]:
+        y, _, _, gy = _epilogue_inputs(cuda_device, shape, dtype, False)
+        lib = epilogue.load_library()
+        first = epilogue.launch_backward(lib, gy, y)
+        second = epilogue.launch_backward(lib, gy, y)
+        assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1]), shape
+
+
+@pytest.mark.cuda
+def test_conv_epilogue_refusals_on_the_card(cuda_device):
+    """The kernel takes dense NHWC bf16 or f32, and nothing else."""
+    z, _, b, _ = _epilogue_inputs(cuda_device, (2, 8, 4, 4), torch.float32, False)
+    with pytest.raises(ValueError, match="channels_last"):
+        bias_lrelu(z.contiguous(), b)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        bias_lrelu(z.half(), b)
+    with pytest.raises(ValueError, match="z2"):
+        bias_lrelu(z, b, z.contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["unet", "unet_s2d"])
+def test_pooled_calls_launch_the_epilogue_36_times_a_step(cuda_device, tmp_path, arch):
+    """The benchmark's configurations (width 32, bf16, split, convt, batch
+    8) in the Engine's pooled trainer at K = 10: the eager call, the
+    capture's replay and a replay each count 360 launches of the conv
+    epilogue, 18 forward and 18 backward a step."""
+    recs = onp.random.default_rng(5).integers(0, 65535, (16, 64, 64, 4), dtype=onp.uint16)
+    pool = {"clean": torch.from_numpy(recs).to(cuda_device)}
+    eng = Engine(Config(device="cuda", netG=arch, noise="eld", include=4, base_width=32,
+                        batch_size=8, bf16=True, is_train=True, no_log=True, no_verbose=True,
+                        checkpoints_dir=str(tmp_path), name=arch))
+    fn = eng._scan_fn(10)
+    counts = []
+    for call in range(3):
+        before = bias_lrelu.launches
+        fn(eng.state, pool, [fold_in(1, 10 * call + j) for j in range(10)])
+        counts.append(bias_lrelu.launches - before)
+    torch.cuda.synchronize(cuda_device)
+    assert counts == [360] * 3 and graph_replays(fn) == 2
+    assert onp.isfinite(fn.losses.cpu().numpy()).all()

@@ -4,7 +4,8 @@ the graph path (``train/steps.py::_GraphCall``) runs on the CPU.
 ``install_fake_card(setattr)`` routes CPU tensors down the graph path: a
 graph that counts its replays and remembers its registered generators, a
 capture that runs the call's Python for real on the CPU, streams that do
-nothing, and K1's wrapper counting its (CPU, plain) calls as launches.
+nothing, and K1's wrapper and the conv epilogue's plain version
+(``models/epilogue.py``) counting their CPU calls as launches.
 With ``_RecordingGraph`` a replay does nothing; with ``_ReplayingGraph``
 it runs the captured call's Python again on the graph's buffers and
 draws and writes its outputs into the graph's own, as a replay on the
@@ -22,7 +23,8 @@ import numpy as onp
 import pytest
 import torch
 
-from eld_tpu_torch.models import build_arch
+from eld_tpu_torch.models import build_arch, epilogue
+from eld_tpu_torch.models.epilogue import bias_lrelu
 from eld_tpu_torch.noise.params import load_camera_params
 from eld_tpu_torch.train import steps
 from eld_tpu_torch.train.state import create_train_state
@@ -80,11 +82,12 @@ class _ReplayingGraph(_RecordingGraph):
             return
         state, kernel = self.state, steps.synthesize_kernel
         step, launches = (state.step if state is not None else 0), kernel.launches
+        epilogue = bias_lrelu.launches
         for out, new in zip(self.call.out, self.call._run(state, self.inputs)):
             out.copy_(new)
         if state is not None:
             state.step = step
-        kernel.launches = launches
+        kernel.launches, bias_lrelu.launches = launches, epilogue
 
 
 class _FakeStream:
@@ -106,6 +109,12 @@ def install_fake_card(setattr, graph=_RecordingGraph):
 
     counting_kernel.launches = 0
 
+    def counting(plain):
+        def run(*args):
+            bias_lrelu.launches += 1
+            return plain(*args)
+        return run
+
     @contextlib.contextmanager
     def capture(g, pool=None, capture_error_mode=None):
         pools.append(pool)
@@ -117,6 +126,8 @@ def install_fake_card(setattr, graph=_RecordingGraph):
 
     setattr(steps, "_captures", lambda device, *a: real_captures(torch.device("cuda"), *a))
     setattr(steps, "synthesize_kernel", counting_kernel)
+    setattr(epilogue, "plain_forward", counting(epilogue.plain_forward))
+    setattr(epilogue, "plain_backward", counting(epilogue.plain_backward))
     setattr(steps._GraphCall, "_capture", capture_and_link)
     setattr(torch.cuda, "CUDAGraph", graph)
     setattr(torch.cuda, "graph", capture)

@@ -13,6 +13,8 @@ record), losses within rtol 1e-5 and parameters within
 """
 
 import copy
+import gc
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -48,7 +50,7 @@ from eld_tpu_torch.train.steps import (
     rank_noise_seed,
     step_random,
 )
-from tests.test_torch_fake_card import _FakeGraph
+from tests.test_torch_fake_card import _FakeGraph, _RecordingGraph, install_fake_card
 
 LR = 1e-4
 SEEDS = [0, 7, 0x1234_5678_9ABC_DEF0, (1 << 63) + 5, (1 << 64) - 1]
@@ -181,6 +183,38 @@ def test_a_replay_advances_step_and_launches_by_k_and_returns_copies():
     assert float(got[0][0]) == 0.5 and got[1][1].tolist() == [0.75, 0.5, 0.25]
     assert call.seeds.tolist() == [seed_int64(rank_noise_seed(fold_in(9, 10 + j)))
                                    for j in range(k)]
+
+
+class _UnlinkedGraph(_RecordingGraph):
+    """The stand-in without its link back to the call it holds, as a
+    graph on the card has none."""
+
+    def link(self, call, state, inputs):
+        pass
+
+
+def test_a_dropped_trainer_frees_its_graph_without_the_cyclic_collector(monkeypatch):
+    """Nothing refers to a trainer but its holder: dropped, its graph goes
+    at once (on the card, with its memory pool), not when the cyclic
+    collector next runs, which may be in the middle of another capture."""
+    install_fake_card(monkeypatch.setattr, _UnlinkedGraph)
+    state = _scan_state()
+    fn = make_train_scan(state.model, noise_model="eld", bank=load_camera_params(include=4),
+                         batch=2, steps_per_call=2)
+    pool = {"clean": torch.from_numpy(_u16((4, 16, 16, 4), 0))}
+    for c in range(3):  # eager, capture, replay
+        fn(state, pool, [fold_in(2, 2 * c + j) for j in range(2)])
+    (call,) = fn.graphs.values()
+    assert call.graph.replays == 2 and fn.losses.shape == (2,)
+    graph, call = weakref.ref(call.graph), None
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        del fn
+        assert graph() is None
+    finally:
+        if collecting:
+            gc.enable()
 
 
 def test_a_new_pool_or_optimizer_state_drops_the_graph():
