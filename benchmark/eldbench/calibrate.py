@@ -60,18 +60,18 @@ def reference_side(cell: manifest.Cell, seeds: List[int], device: str = "cuda",
     """The control's and the faults' readings, reference against reference;
     with ``first_only`` the control's first-gradient numbers alone."""
     tr, cf = cell.traffic, cell.config
-    opt, world = cf["optimizer"], tr["ranks"]
+    opt, world, model = cf["optimizer"], tr["ranks"], cell_mod.forward(cell)
     n_steps = 1 if first_only else sum(
         cell_mod.checked_calls(tr["steps_per_call"], cell_mod.epoch_steps(tr)))
     out = []
     for seed in seeds:
         pool = scenes.make_pool(seed, tr["pool_patches"], tr["patch"], device)
-        weights = reference.make_weights(seed, cf["arch"], cf["base_width"], device)
+        weights = cell_mod.arch(cell).make_weights(seed, cf, device)
         bank = reference.camera_bank(cell_mod.camera_file(cell), device)
         steps = [reference.fold_in(cell_mod.program_seed(seed), i) for i in range(n_steps)]
 
         def follow(**kw):
-            return reference.follow(cf["arch"], weights, pool, bank, tr["global_batch"], steps,
+            return reference.follow(model, weights, pool, bank, tr["global_batch"], steps,
                                     opt["lr"], opt["beta1"], world, **kw)
 
         ref = follow()

@@ -25,6 +25,7 @@ the reference follows every checked step.
 
 from __future__ import annotations
 
+import functools
 import gc
 import math
 import os
@@ -54,15 +55,26 @@ def program_argv(cell: manifest.Cell, seed: int, save_root: str, device: str) ->
     cf, tr = cell.config, cell.traffic
     opt = cf["optimizer"]
     argv = ["--name", cell.name, "--checkpoints_dir", save_root, "--device", device,
-            "--netG", cf["arch"], "--base_width", str(cf["base_width"]),
-            "--skip_mode", cf["skip_mode"], "--upsample", cf["upsample"],
-            "--noise", cf["noise"], "--include", str(cf["camera_include"]),
-            "--loss", cf["loss"], "--lr", repr(opt["lr"]), "--beta1", repr(opt["beta1"]),
+            *arch(cell).program_args(cf), "--noise", cf["noise"],
+            "--include", str(cf["camera_include"]), "--loss", cf["loss"],
+            "--lr", repr(opt["lr"]), "--beta1", repr(opt["beta1"]),
             "-b", str(tr["global_batch"]), "--mesh_data", str(tr["ranks"]),
             "--seed", str(program_seed(seed)), "--no-log", "--no-verbose"]
     if cf["precision"] == "bf16":
         argv.append("--bf16")
     return argv
+
+
+def arch(cell: manifest.Cell):
+    """The module of the cell's architecture (``archs/<arch>.py``)."""
+    return manifest.arch(cell.config["arch"])
+
+
+def forward(cell: manifest.Cell):
+    """The cell's model as the reference runs it, ``forward(p, x,
+    precision)``: its architecture's ``forward`` with the configuration
+    bound."""
+    return functools.partial(arch(cell).forward, cell.config)
 
 
 def program_seed(seed: int) -> int:
@@ -97,9 +109,9 @@ def setup(cell: manifest.Cell, seed: int, save_root: str, device: str = "cuda",
     maybe_initialize_multihost(cfg)
     engine = Engine(cfg)
     phases["engine"] = time.time() - t0
-    tr, cf = cell.traffic, cell.config
+    tr = cell.traffic
     pool = {"clean": scenes.make_pool(seed, tr["pool_patches"], tr["patch"], engine.device)}
-    weights = reference.make_weights(seed, cf["arch"], cf["base_width"], engine.device)
+    weights = arch(cell).make_weights(seed, cell.config, engine.device)
     engine.model.load_state_dict(weights)
     _sync(engine.device)
     phases["pool_weights"] = time.time() - t0
@@ -225,7 +237,7 @@ def check(cell: manifest.Cell, pool: torch.Tensor, weights, checked: dict, progr
     """The reference follows the checked steps; the comparison's numbers."""
     bank = reference.camera_bank(camera_file(cell), pool.device)
     seeds = [reference.fold_in(program_seed_, i) for i in range(len(checked["losses"]))]
-    ref = reference.follow(cell.config["arch"], weights, pool, bank, cell.traffic["global_batch"],
+    ref = reference.follow(forward(cell), weights, pool, bank, cell.traffic["global_batch"],
                            seeds, lr, beta1, world)
     return compare.readings(checked["losses"], checked["grad1"], checked["params"], ref, weights,
                             detail)

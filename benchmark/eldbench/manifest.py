@@ -1,13 +1,36 @@
 """``BENCHMARK.json`` and the files it names, found by name: a cell's
 configuration (its ``file``), its traffic mix (``traffic/<name>.json``),
-its limits (``limits/<cell>.json``) and each per-layer metric's reader
+its limits (``limits/<cell>.json``), each per-layer metric's reader
 (``metrics/<metric>.py``, a ``read(ctx)`` that returns a number or
-None).  A new cell is files and an entry in the manifest; nothing here
-changes."""
+None) and the configuration's architecture (``archs/<arch>.py``, for the
+config's ``arch``).
+
+A new cell is files and entries in the manifest; nothing here changes.
+A configuration of an architecture the benchmark has no module for adds
+that module beside them, with
+
+  * ``param_specs(config)``: (name, shape) of every parameter, in the
+    program's ``state_dict`` names;
+  * ``make_weights(seed, config, device)``: the initial weights from the
+    seed, drawn from ``reference.weight_generator`` by the architecture's
+    own init rule;
+  * ``forward(config, p, x, precision)``: the model in plain float32
+    ``torch``, NHWC in and out; "bf16" runs under the caller's autocast,
+    "fp8" rounds every conv or matmul as ``reference._conv`` does;
+  * ``program_args(config)``: the program's model flags (``--netG`` and
+    what follows it);
+  * ``step_flops(config, batch, h, w)``: the frozen analytic FLOPs of one
+    train step.
+
+The reference runs ``forward`` over the whole batch in one pass; a model
+whose float32 backward would not fit saves its memory inside its own
+``forward`` (``torch.utils.checkpoint`` around its blocks, say).
+"""
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import importlib.util
 import json
 import os
@@ -56,10 +79,20 @@ def cell(name: str) -> Cell:
                 per_layer=_for(manifest["per_layer"], name))
 
 
-def reader(metric: str):
-    """The module ``metrics/<metric>.py``, loaded by path."""
-    path = os.path.join(HERE, "metrics", f"{metric}.py")
-    spec = importlib.util.spec_from_file_location(f"eldbench_metric_{metric}", path)
+def _load(folder: str, name: str):
+    path = os.path.join(HERE, folder, f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"eldbench_{folder}_{name}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def reader(metric: str):
+    """The module ``metrics/<metric>.py``, loaded by path."""
+    return _load("metrics", metric)
+
+
+@functools.lru_cache(maxsize=None)
+def arch(name: str):
+    """The module ``archs/<name>.py``, loaded by path once."""
+    return _load("archs", name)

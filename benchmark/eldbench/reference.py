@@ -18,31 +18,33 @@ One step with step seed ``s`` (the Engine's ``fold_in(seed, iteration)``):
     draws from Philox4x32-10 keyed by ``fold_in(s, 1)`` (and, on rank r
     of a data-parallel run, ``fold_in(fold_in(s, 1), r)`` for that rank's
     rows), clipped to [0, 1];
-  * the SID U-Net (Chen et al., CVPR 2018): 5 levels of two 3x3 convs and
-    LeakyReLU(0.2), 2x2 max pooling, 2x2 stride-2 transposed convs and
-    skip concatenation, a 1x1 output conv; ``unet_s2d`` runs it on the
-    2x2 space-to-depth input (channel order (di, dj, c)) and moves the
-    output back;
+  * the model of the configuration's ``arch``: ``archs/<arch>.py``'s
+    ``forward`` (the SID U-Net's is ``archs/unet.py``), its initial
+    weights that module's ``make_weights``, drawn from
+    ``weight_generator``;
   * the L1 loss against the clean patch, and Adam (beta2 0.999, eps 1e-8).
 
 ``precision`` "f32" is the reference; "bf16" the same under bfloat16
 autocast, as the program computes; "fp8" is the control, the same
-step with every convolution's input and weight rounded to float8 e4m3 and
-the gradient reaching each convolution's output rounded to float8 e5m2,
-each with a per-tensor scale.  ``fault`` plants one of the faults the
-comparison has to catch, in place of the program: "half_batch" (the
-loss is the mean over the first half of the rows) and "no_exchange"
-(rank ``rank`` steps on the gradient of its own rows alone).
+step with every convolution's (or matmul's) input and weight rounded to
+float8 e4m3 and the gradient reaching its output rounded to float8 e5m2,
+each with a per-tensor scale: ``_conv`` does so, and an architecture's
+other products go through ``_fake_fp8`` and ``_GradFp8`` alike.
+``fault`` plants one of the faults the comparison has to catch, in place
+of the program: "half_batch" (the loss is the mean over the first half
+of the rows) and "no_exchange" (rank ``rank`` steps on the gradient of
+its own rows alone).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
 
 MASK32 = 0xFFFFFFFF
 MASK64 = (1 << 64) - 1
@@ -73,41 +75,12 @@ def noise_seed(step_seed: int, rank: int, world: int) -> int:
     return s if world == 1 else fold_in(s, rank)
 
 
-# ---- the model's parameters -----------------------------------------------
+# ---- the initial weights ------------------------------------------------------
 
-def param_specs(arch: str, base_width: int, channels: int = 4) -> List[Tuple[str, tuple]]:
-    """(name, shape) of every parameter, in the SID reference's names and
-    torch's OIHW (IOHW for the transposed convs) layout."""
-    cin = cout = channels * (4 if arch == "unet_s2d" else 1)
-    widths = [base_width * 2 ** i for i in range(5)]
-    specs, prev = [], cin
-    for lvl, w in enumerate(widths, start=1):
-        specs += [(f"conv{lvl}_1.weight", (w, prev, 3, 3)), (f"conv{lvl}_1.bias", (w,)),
-                  (f"conv{lvl}_2.weight", (w, w, 3, 3)), (f"conv{lvl}_2.bias", (w,))]
-        prev = w
-    for lvl, w in zip(range(6, 10), widths[3::-1]):
-        specs += [(f"upv{lvl}.weight", (2 * w, w, 2, 2)), (f"upv{lvl}.bias", (w,)),
-                  (f"conv{lvl}_1.weight", (w, 2 * w, 3, 3)), (f"conv{lvl}_1.bias", (w,)),
-                  (f"conv{lvl}_2.weight", (w, w, 3, 3)), (f"conv{lvl}_2.bias", (w,))]
-    specs += [("conv10_1.weight", (cout, widths[0], 1, 1)), ("conv10_1.bias", (cout,))]
-    return specs
-
-
-def make_weights(seed: int, arch: str, base_width: int, device) -> Dict[str, torch.Tensor]:
-    """The initial weights, made on ``device`` from ``seed`` in one draw:
-    U(-b, b) with b = 1/sqrt(fan_in), torch's default init of a conv's
-    weight and bias (fan_in = shape[1] * kernel area of the weight)."""
-    specs = param_specs(arch, base_width)
-    gen = torch.Generator(device=device).manual_seed(fold_in(seed, 0x5EED) >> 1)
-    sizes = [math.prod(shape) for _, shape in specs]
-    flat = torch.rand(sum(sizes), generator=gen, device=device) * 2.0 - 1.0
-    out, weight_shape = {}, None
-    for (name, shape), part in zip(specs, torch.split(flat, sizes)):
-        if name.endswith(".weight"):
-            weight_shape = shape
-        fan_in = weight_shape[1] * math.prod(weight_shape[2:])
-        out[name] = part.view(shape) / math.sqrt(fan_in)
-    return out
+def weight_generator(seed: int, device) -> torch.Generator:
+    """The generator an architecture's ``make_weights`` draws from, seeded
+    from the run's ``seed`` apart from every other draw of the run."""
+    return torch.Generator(device=device).manual_seed(fold_in(seed, 0x5EED) >> 1)
 
 
 # ---- the control's float8 rounding -------------------------------------------
@@ -137,46 +110,6 @@ def _conv(x, w, b, precision, transpose=False, **kw):
         w = w + (_fake_fp8(w, torch.float8_e4m3fn) - w).detach()
     y = (F.conv_transpose2d if transpose else F.conv2d)(x, w, b, **kw)
     return _GradFp8.apply(y) if precision == "fp8" else y
-
-
-def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
-    n, h, w, c = x.shape
-    x = x.reshape(n, h // block, block, w // block, block, c)
-    return x.permute(0, 1, 3, 2, 4, 5).reshape(n, h // block, w // block, c * block * block)
-
-
-def depth_to_space(x: torch.Tensor, block: int = 2) -> torch.Tensor:
-    n, h, w, cbb = x.shape
-    c = cbb // (block * block)
-    x = x.reshape(n, h, w, block, block, c)
-    return x.permute(0, 1, 3, 2, 4, 5).reshape(n, h * block, w * block, c)
-
-
-def unet(p: Dict[str, torch.Tensor], x: torch.Tensor, precision: str = "f32") -> torch.Tensor:
-    """The SID U-Net on NHWC ``x``; NHWC out."""
-    def conv(t, name, **kw):
-        return _conv(t, p[f"{name}.weight"], p[f"{name}.bias"], precision, **kw)
-
-    def pair(t, lvl):
-        t = F.leaky_relu(conv(t, f"conv{lvl}_1", padding=1), 0.2)
-        return F.leaky_relu(conv(t, f"conv{lvl}_2", padding=1), 0.2)
-
-    t, skips = x.permute(0, 3, 1, 2), []
-    for lvl in range(1, 6):
-        t = pair(t, lvl)
-        if lvl < 5:
-            skips.append(t)
-            t = F.max_pool2d(t, 2)
-    for lvl in range(6, 10):
-        t = conv(t, f"upv{lvl}", transpose=True, stride=2)
-        t = pair(torch.cat([t, skips[9 - lvl]], dim=1), lvl)
-    return conv(t, "conv10_1").permute(0, 2, 3, 1)
-
-
-def model(arch: str, p, x, precision="f32"):
-    if arch == "unet_s2d":
-        return depth_to_space(unet(p, space_to_depth(x), precision))
-    return unet(p, x, precision)
 
 
 # ---- noise parameters ----------------------------------------------------------
@@ -358,41 +291,51 @@ class Run:
             self.p[k].addcdiv_(self.m[k], denom, value=-self.lr / (1 - b1 ** t))
 
 
-def grads_and_loss(arch, p, noisy, clean, precision="f32"):
-    """The L1 loss over ``noisy``'s rows and its gradients.  ``precision``
-    "bf16" runs the model under bfloat16 autocast: the witness that the
-    program's readings are bfloat16's own."""
+def grads_and_loss(forward, p, noisy, clean, precision="f32"):
+    """The L1 loss over ``noisy``'s rows and its gradients, through the
+    model ``forward(p, x, precision)``.  ``precision`` "bf16" runs it under
+    bfloat16 autocast: the witness that the program's readings are
+    bfloat16's own."""
     leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
     with torch.autocast(noisy.device.type, dtype=torch.bfloat16, enabled=precision == "bf16"):
-        pred = model(arch, leaves, noisy, precision)
+        pred = forward(leaves, noisy, precision)
     loss = torch.mean(torch.abs(pred.float() - clean))
     grads = torch.autograd.grad(loss, list(leaves.values()))
     return dict(zip(leaves, grads)), float(loss.detach())
 
 
-def follow(arch: str, weights, pool, bank, batch: int, seeds: Sequence[int], lr: float,
+def follow(forward, weights, pool, bank, batch: int, seeds: Sequence[int], lr: float,
            beta1: float, world: int = 1, precision: str = "f32", fault: Optional[str] = None,
            rank: int = 0) -> dict:
-    """Train ``len(seeds)`` steps from ``weights``; returns each step's loss
-    over the global batch, the first step's gradient and the parameters
-    after the last step."""
-    run = Run(weights, lr, beta1)
-    losses, first = [], None
-    for seed in seeds:
-        noisy, clean = step_batch(pool, batch, seed, bank, world)
-        if fault == "half_batch":
-            grads, loss = grads_and_loss(arch, run.p, noisy[: batch // 2], clean[: batch // 2],
-                                         precision)
-        elif fault == "no_exchange":
-            per = batch // world
-            sl = slice(rank * per, (rank + 1) * per)
-            grads, _ = grads_and_loss(arch, run.p, noisy[sl], clean[sl], precision)
-            loss = grads_and_loss(arch, run.p, noisy, clean, precision)[1]
-        else:
-            grads, loss = grads_and_loss(arch, run.p, noisy, clean, precision)
-        if first is None:
-            first = {k: g.clone() for k, g in grads.items()}
-        run.adam(grads)
-        losses.append(loss)
-        del noisy, clean, grads
+    """Train ``len(seeds)`` steps of the model ``forward(p, x, precision)``
+    (an architecture's ``forward`` with its configuration bound) from
+    ``weights``; returns each step's loss over the global batch, the first
+    step's gradient and the parameters after the last step.  Float32
+    products are float32's on the card: TF32 is off while it runs, as the
+    program's own float32 path turns it off, and the caller's settings
+    come back after."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        run = Run(weights, lr, beta1)
+        losses, first = [], None
+        for seed in seeds:
+            noisy, clean = step_batch(pool, batch, seed, bank, world)
+            if fault == "half_batch":
+                grads, loss = grads_and_loss(forward, run.p, noisy[: batch // 2],
+                                             clean[: batch // 2], precision)
+            elif fault == "no_exchange":
+                per = batch // world
+                sl = slice(rank * per, (rank + 1) * per)
+                grads, _ = grads_and_loss(forward, run.p, noisy[sl], clean[sl], precision)
+                loss = grads_and_loss(forward, run.p, noisy, clean, precision)[1]
+            else:
+                grads, loss = grads_and_loss(forward, run.p, noisy, clean, precision)
+            if first is None:
+                first = {k: g.clone() for k, g in grads.items()}
+            run.adam(grads)
+            losses.append(loss)
+            del noisy, clean, grads
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     return {"losses": losses, "grad1": first, "params": run.p}

@@ -35,12 +35,13 @@ def test_control_and_faults_fail_at_the_cells_size(name):
 
 
 def _follow(precision, seed=2**31 + 11):
+    cell = manifest.cell("syn-pool.unet.b8")
     pool = scenes.make_pool(seed, 16, 64, "cpu")
-    weights = reference.make_weights(seed, "unet", 32, "cpu")
-    bank = reference.camera_bank(cell_mod.camera_file(manifest.cell("syn-pool.unet.b8")), "cpu")
+    weights = cell_mod.arch(cell).make_weights(seed, cell.config, "cpu")
+    bank = reference.camera_bank(cell_mod.camera_file(cell), "cpu")
     seeds = [reference.fold_in(seed, i) for i in range(3)]
-    return pool, weights, reference.follow("unet", weights, pool, bank, 4, seeds, 1e-4, 0.9,
-                                           precision=precision)
+    return pool, weights, reference.follow(cell_mod.forward(cell), weights, pool, bank, 4, seeds,
+                                           1e-4, 0.9, precision=precision)
 
 
 def test_float8_control_errs_many_times_bfloat16():

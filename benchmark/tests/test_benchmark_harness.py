@@ -1,9 +1,11 @@
 """The harness on the CPU: the manifest and the files it names, the
 contract's names and units, which cells report which metrics, the
 readers on a canned profiler trace, the step-weighted tail, adding a cell
-by files alone, and the refusal without a card."""
+by files alone, adding a configuration of a new architecture by files
+alone, and the refusal without a card."""
 
 import json
+import math
 import os
 import re
 import shutil
@@ -118,9 +120,7 @@ def test_readers_on_a_canned_trace():
     least = (2 * 4 * 512 * 512 * 4 * 4 + 4 * 48) / 3350e9
     assert manifest.reader("k1.roofline_pct").read(_ctx(t)) == pytest.approx(
         100 * least / 100e-6)
-    from eldbench import yardstick
-
-    flops = yardstick.conv_flops("unet", 16, 512, 512, 32)
+    flops = manifest.arch("unet").step_flops(_ctx(t).config, 16, 512, 512)
     assert manifest.reader("step.mfu_pct").read(_ctx(t)) == pytest.approx(
         100 * flops / 0.01 / (4 * 989.4e12))
     b = trace.breakdown(t)
@@ -198,11 +198,132 @@ def test_a_new_cell_is_files_and_a_manifest_entry(tmp_path):
     # the per-layer metrics list their cells, so the new cell reports none of them
     # until a manifest entry names it there
     assert out.stdout.split() == ["16", "unet", "0"]
-    for name in ("eldbench", "metrics"):
+    for name in ("eldbench", "metrics", "archs"):
         for f in os.listdir(os.path.join(BENCH, name)):
             if f.endswith(".py"):
                 assert (tmp_path / "benchmark" / name / f).read_text() == \
                     open(os.path.join(BENCH, name, f)).read()
+
+
+TOY = '''"""A toy architecture: conv 3x3, channel LayerNorm, LeakyReLU, conv 3x3."""
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from eldbench import reference
+
+
+def param_specs(config):
+    c, w, o = config["in_channels"], config["width"], config["out_channels"]
+    return [("conv1.weight", (w, c, 3, 3)), ("conv1.bias", (w,)), ("norm.weight", (w,)),
+            ("norm.bias", (w,)), ("conv2.weight", (o, w, 3, 3)), ("conv2.bias", (o,))]
+
+
+def make_weights(seed, config, device):
+    gen, out = reference.weight_generator(seed, device), {}
+    for name, shape in param_specs(config):
+        if name.startswith("norm."):
+            out[name] = (torch.ones if name.endswith("weight") else torch.zeros)(
+                shape, device=device)
+        else:
+            if name.endswith(".weight"):
+                fan_in = shape[1] * 9
+            u = torch.rand(shape, generator=gen, device=device) * 2.0 - 1.0
+            out[name] = u / math.sqrt(fan_in)
+    return out
+
+
+def forward(config, p, x, precision="f32"):
+    t = reference._conv(x.permute(0, 3, 1, 2), p["conv1.weight"], p["conv1.bias"], precision,
+                        padding=1).permute(0, 2, 3, 1)
+    t = F.leaky_relu(F.layer_norm(t, t.shape[-1:], p["norm.weight"], p["norm.bias"]), 0.2)
+    return reference._conv(t.permute(0, 3, 1, 2), p["conv2.weight"], p["conv2.bias"], precision,
+                           padding=1).permute(0, 2, 3, 1)
+
+
+def program_args(config):
+    return ["--netG", "toy", "--toy_width", str(config["width"])]
+
+
+def step_flops(config, n, h, w):
+    c, k, o = config["in_channels"], config["width"], config["out_channels"]
+    return 3 * 2 * n * h * w * 9 * (c * k + k * o) - 2 * n * h * w * 9 * c * k
+
+'''
+
+TOY_RUN = """
+import json, math, sys, types
+sys.path.insert(0, "benchmark")
+from eldbench import cell as cell_mod, manifest, reference, scenes
+c = manifest.cell("toy.b8")
+toy, tr, cf = cell_mod.arch(c), c.traffic, c.config
+weights = toy.make_weights(7, cf, "cpu")
+pool = scenes.make_pool(7, tr["pool_patches"], tr["patch"], "cpu")
+bank = reference.camera_bank(cell_mod.camera_file(c), "cpu")
+ref = reference.follow(cell_mod.forward(c), weights, pool, bank, tr["global_batch"],
+                       [reference.fold_in(7, i) for i in range(3)], cf["optimizer"]["lr"],
+                       cf["optimizer"]["beta1"])
+ctx = types.SimpleNamespace(config=cf, traffic=tr, chips=1, step_s=0.01)
+print(json.dumps({
+    "argv": cell_mod.program_argv(c, 7, "SAVE", "cpu"), "args": toy.program_args(cf),
+    "losses": ref["losses"], "norm_init": weights["norm.weight"].tolist(),
+    "moved": [k for k in weights if not bool((ref["params"][k] == weights[k]).all())],
+    "flops": toy.step_flops(cf, tr["global_batch"], tr["patch"], tr["patch"]),
+    "mfu": manifest.reader("step.mfu_pct").read(ctx)}))
+"""
+
+
+def test_a_new_architecture_is_files_and_manifest_entries(tmp_path):
+    """A copy of the benchmark gains a configuration of an architecture it
+    has no module for by new files alone (the module, the configuration,
+    a traffic mix, limits) and new entries in BENCHMARK.json: the cell
+    loads, the program gets the module's flags, the plain reference
+    trains it, and the whole step's MFU reader counts its
+    FLOPs."""
+    shutil.copytree(BENCH, tmp_path / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    (tmp_path / "eld_tpu").mkdir()
+    os.symlink(os.path.join(ROOT, "eld_tpu", "data_files"), tmp_path / "eld_tpu" / "data_files")
+    before = {p.relative_to(tmp_path) for p in tmp_path.rglob("*") if p.is_file()}
+    (tmp_path / "benchmark/archs/toy.py").write_text(TOY)
+    config = json.loads((tmp_path / "benchmark/configs/sid-unet-w32.json").read_text())
+    for key in ("levels", "base_width", "widths", "parameters", "skip_mode", "upsample"):
+        del config[key]
+    config.update(name="toy", source="a test's own", arch="toy", width=16, precision="f32",
+                  reduced=[])
+    (tmp_path / "benchmark/configs/toy.json").write_text(json.dumps(config))
+    traffic = json.loads((tmp_path / "benchmark/traffic/syn-pool-b8.json").read_text())
+    traffic.update(name="toy-b8", pool_patches=8, patch=32, global_batch=8, steps_per_call=2)
+    (tmp_path / "benchmark/traffic/toy-b8.json").write_text(json.dumps(traffic))
+    shutil.copy(tmp_path / "benchmark/limits/syn-pool.unet.b8.json",
+                tmp_path / "benchmark/limits/toy.b8.json")
+    man = json.loads(json.dumps(MANIFEST))
+    man["configs"].append({"name": "toy", "source": "a test's own",
+                           "file": "benchmark/configs/toy.json", "reduced": [], "why": "toy"})
+    man["workloads"].append({"name": "toy.b8", "config": "toy", "traffic": "toy-b8", "chips": 1,
+                             "why": "8 patches of 32x32"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(man))
+    added = {p.relative_to(tmp_path) for p in tmp_path.rglob("*") if p.is_file()} - before
+    assert {str(p) for p in added} == {"benchmark/archs/toy.py", "benchmark/configs/toy.json",
+                                       "benchmark/traffic/toy-b8.json",
+                                       "benchmark/limits/toy.b8.json", "BENCHMARK.json"}
+    out = subprocess.run([sys.executable, "-c", TOY_RUN], cwd=tmp_path, capture_output=True,
+                         text=True, timeout=300, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode == 0, out.stderr[-3000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    i = res["argv"].index("--netG")
+    assert res["args"] == ["--netG", "toy", "--toy_width", "16"]
+    assert res["argv"][i:i + 4] == res["args"] and res["argv"][i - 2:i] == ["--device", "cpu"]
+    assert "--base_width" not in res["argv"] and "--skip_mode" not in res["argv"]
+    assert len(res["losses"]) == 3 and all(math.isfinite(v) and v > 0 for v in res["losses"])
+    assert res["norm_init"] == [1.0] * 16
+    assert set(res["moved"]) == {"conv1.weight", "conv1.bias", "norm.weight", "norm.bias",
+                                 "conv2.weight", "conv2.bias"}
+    flops = 3 * 2 * 8 * 32 * 32 * 9 * (4 * 16 + 16 * 4) - 2 * 8 * 32 * 32 * 9 * 4 * 16
+    assert res["flops"] == flops
+    assert res["mfu"] == pytest.approx(100 * flops / 0.01 / 989.4e12)
 
 
 def test_run_refuses_without_a_card():

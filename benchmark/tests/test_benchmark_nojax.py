@@ -29,6 +29,7 @@ def test_harness_and_every_named_file_load_no_jax():
         "m = manifest.load()\n"
         "[manifest.cell(w['name']) for w in m['workloads']]\n"
         "[manifest.reader(x['name']) for x in m['per_layer']]\n"
+        "[cell.arch(manifest.cell(w['name'])) for w in m['workloads']]\n"
         "from eld_tpu_torch.tools import train_syn\n"
         "from eld_tpu_torch.train import engine\n"
         "from eld_tpu_torch.parallel import launch, multihost\n"
@@ -38,7 +39,11 @@ def test_harness_and_every_named_file_load_no_jax():
 
 
 def test_reference_loads_nothing_of_the_program():
-    loaded = _top_level_after("from eldbench import reference, compare, scenes, yardstick")
+    loaded = _top_level_after(
+        "from eldbench import reference, compare, scenes, yardstick, manifest\n"
+        "import os\n"
+        "[manifest.arch(f[:-3]) for f in os.listdir(os.path.join(manifest.HERE, 'archs')) "
+        "if f.endswith('.py')]")
     assert not loaded & {"eld_tpu_torch", "eld_tpu", "jax", "jaxlib", "flax"}
 
 
