@@ -170,6 +170,20 @@ Phases, one line or block of output each; any failure exits non-zero:
      they replace (``library_ms``: the bias add_, leaky_relu, its backward
      and the bf16 bias-gradient sum), each beside the byte bound, per
      shape and over a step's 18 epilogues;
+ 15. Restormer's attention, MDTA (eld_tpu_torch/csrc/mdta.cu): its build,
+     registers and spills; at the shapes of the benchmark cell
+     syn-pool.restormer.p256b4 (batch 4 of 256^2 at dim 48: 1 head of 48
+     at 256^2, 2 at 128^2, 4 at 64^2, 8 at 32^2, 1 head of 96 at 256^2)
+     ``mdta`` itself forward and backward, twice, bit for bit and one
+     launch counted each way, against the f32 composition
+     (``plain_forward``, ``plain_backward``) within the card tests'
+     relative tolerances; the kernels' time alone, the composition under
+     bf16 autocast they replace (``library_ms``) and the byte bound
+     (22 bytes a channel-pixel at 3,350 GB/s), per shape and over a step's
+     44 attentions; then the Engine's pooled trainer at the cell's
+     configuration (--netG restormer --base_width 48 --bf16, batch 4, K =
+     10): an eager call and the capture, then three timed replays with
+     ``mdta.launches`` reset before them and checked at 88 a step;
 and prints the kernels' JSON line, the card line, and a last JSON line
 {"ok": true, "device": {...}}.  It imports nothing of JAX.
 """
@@ -3620,6 +3634,7 @@ def main():
         torch.cuda.empty_cache()
         p13 = phase13(card, tmp, p12)
     p14 = phase14(card)
+    p15 = phase15(card)
 
     from eld_tpu_torch.models import epilogue
     from eld_tpu_torch.noise.kernels import REPLACES, SOURCE_PATH
@@ -3653,7 +3668,7 @@ def main():
         # the pooled main path's own calls (phases 4 and 10c), counted from 0
         "launches": epi_launches, "launches_per_step": epi_launches / epi_steps,
         "step_ms": p14["step"],
-        "registers": p14["registers"], "build_s": p14["build_s"]}]}
+        "registers": p14["registers"], "build_s": p14["build_s"]}, mdta_entry(p15)]}
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -3817,6 +3832,175 @@ def phase14(card):
         print(f"[14] {arch} b8, a step's 18 epilogues: " + json.dumps(
             {k: round(v, 4) for k, v in totals.items()}) + f"  ({card})", flush=True)
     return {"build_s": build_s, "registers": regs, "rows": rows, "step": step}
+
+
+# ---- phase 15 -----------------------------------------------------------
+
+# Restormer's attention at the shapes of the cell syn-pool.restormer.p256b4
+# (dim 48, batch 4 of 256^2): (n, h, w, heads, c, blocks a step at that shape)
+MDTA_LEVELS = [(4, 256, 256, 1, 48, 4), (4, 128, 128, 2, 48, 12), (4, 64, 64, 4, 48, 12),
+               (4, 32, 32, 8, 48, 8), (4, 256, 256, 1, 96, 8)]
+# relative tolerances against the f32 composition, tests/test_torch_cuda.py's MDTA_REL
+MDTA_REL = {"out": 4e-3, "dq": 4e-3, "dk": 4e-3, "dv": 4e-3, "dt": 1e-4}
+# the least bytes of one block's attention a channel-pixel, bf16: the forward
+# reads q, k, v and writes out, the backward reads dOut, v, q, k and writes
+# dv, dq, dk (benchmark/archs/restormer.py::mdta_bytes)
+MDTA_BYTES = 22
+MDTA_STEPS_PER_CALL = 10
+
+
+def _mdta_kernel_name(mangled: str) -> str:
+    """mdta_<pass><c>."""
+    import re
+
+    m = re.search(r"(mdta_[a-z_]+)ILi(\d+)E", mangled)
+    return f"{m.group(1)}<{m.group(2)}>" if m else mangled
+
+
+def _mdta_composition(qkv, temp, heads, dout):
+    """What the kernels replace: the attention in PyTorch ops under bf16
+    autocast (F.normalize, the Gram, softmax, A v), forward and backward."""
+    import torch
+    import torch.nn.functional as F
+
+    n, h, w, c3 = qkv.shape
+    dim = c3 // 3
+    x = qkv.detach().requires_grad_(True)
+    t = temp.detach().requires_grad_(True)
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        q, k, v = (part.reshape(n, h * w, heads, dim // heads).permute(0, 2, 3, 1)
+                   for part in x.chunk(3, dim=-1))
+        q, k = F.normalize(q, dim=-1), F.normalize(k, dim=-1)
+        out = ((q @ k.transpose(-2, -1)) * t).softmax(-1) @ v
+        out = out.permute(0, 3, 1, 2).reshape(n, h, w, dim)
+    out.backward(dout.to(out.dtype))
+    return out, x.grad, t.grad
+
+
+def phase15(card):
+    import numpy as np
+    import torch
+
+    from eld_tpu_torch._paths import CSRC_DIR
+    from eld_tpu_torch.config import Config
+    from eld_tpu_torch.models import mdta as attention
+    from eld_tpu_torch.train.engine import Engine
+    from eld_tpu_torch.train.steps import fold_in, graph_replays
+
+    t0 = time.perf_counter()
+    lib = attention.load_library()
+    build_s = time.perf_counter() - t0
+    out_dir = os.path.join(HERE, "build", "eld_tpu_torch", "ptxas")
+    os.makedirs(out_dir, exist_ok=True)
+    _, regs = _build_verbose(os.path.join(CSRC_DIR, "mdta.cu"), out_dir)
+    regs = [dict(r, kernel=_mdta_kernel_name(r["kernel"])) for r in regs]
+    print(f"[15] built mdta in {build_s:.2f} s; " + json.dumps(regs), flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows, worst = [], {k: 0.0 for k in MDTA_REL}
+    step = {"kernel_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+
+    def rel(got, ref):
+        return float((got.float() - ref.float()).norm() / ref.float().norm())
+
+    for n, h, w, heads, c, blocks in MDTA_LEVELS:
+        dim = heads * c
+        qkv = torch.randn((n, h, w, 3 * dim), generator=gen, device=dev).to(torch.bfloat16)
+        temp = 0.5 + torch.rand((heads, 1, 1), generator=gen, device=dev)
+        dout = torch.randn((n, h, w, dim), generator=gen, device=dev).to(torch.bfloat16)
+        rec = {"shape": [n, h, w, heads, c], "blocks": blocks}
+        # the wrapper as the model calls it, twice: one launch counted each
+        # way, and the same bits both times
+        runs = []
+        for _ in range(2):
+            x, t = qkv.clone().requires_grad_(True), temp.clone().requires_grad_(True)
+            before = attention.mdta.launches
+            y = attention.mdta(x, t, heads)
+            y.backward(dout)
+            check(attention.mdta.launches - before == 2,
+                  f"[15] {rec['shape']}: mdta counted {attention.mdta.launches - before} "
+                  f"launches for a forward and a backward")
+            runs.append((y.detach(), x.grad, t.grad))
+        check(all(torch.equal(a, b) for a, b in zip(*runs)),
+              f"[15] {rec['shape']}: two runs differ")
+        y, dqkv, dtemp = runs[0]
+        ref = attention.plain_forward(qkv.float(), temp, heads)
+        dref, dtref = attention.plain_backward(dout.float(), qkv.float(), temp, heads, *ref[1:])
+        rec["rel"] = {"out": rel(y, ref[0]), "dq": rel(dqkv[..., :dim], dref[..., :dim]),
+                      "dk": rel(dqkv[..., dim:2 * dim], dref[..., dim:2 * dim]),
+                      "dv": rel(dqkv[..., 2 * dim:], dref[..., 2 * dim:]),
+                      "dt": rel(dtemp, dtref)}
+        for name, err in rec["rel"].items():
+            check(err <= MDTA_REL[name], f"[15] {rec['shape']} {name}: relative error {err}")
+            worst[name] = max(worst[name], err)
+        del runs, ref, dref
+        fwd = attention.launch_forward(lib, qkv, temp, heads)
+        rec["fwd_ms"] = cuda_ms(lambda: attention.launch_forward(lib, qkv, temp, heads),
+                                spin=True)
+        rec["bwd_ms"] = cuda_ms(lambda: attention.launch_backward(lib, dout, qkv, temp, heads,
+                                                                  *fwd[1:]), spin=True)
+        rec["library_ms"] = cuda_ms(lambda: _mdta_composition(qkv, temp, heads, dout), reps=10,
+                                    spin=True)
+        rec["bound_ms"] = MDTA_BYTES * n * h * w * dim / HBM_GBS / 1e6
+        step["kernel_ms"] += blocks * (rec["fwd_ms"] + rec["bwd_ms"])
+        step["library_ms"] += blocks * rec["library_ms"]
+        step["bound_ms"] += blocks * rec["bound_ms"]
+        rows.append(rec)
+        print("[15] " + json.dumps(rec), flush=True)
+        del qkv, dout, fwd
+    print("[15] a step's 44 attentions at batch 4 of 256^2: " + json.dumps(
+        {k: round(v, 4) for k, v in step.items()}) + f"  ({card})", flush=True)
+
+    # the main path: the Engine's pooled trainer at the cell's configuration,
+    # K = 10, on a pool of random patches; the eager call and the capture,
+    # then timed replays with the attention's count from 0
+    with tempfile.TemporaryDirectory() as tmp:
+        eng = Engine(Config(device="cuda", netG="restormer", noise="eld", include=4,
+                            base_width=48, batch_size=4, bf16=True, is_train=True, no_log=True,
+                            no_verbose=True, checkpoints_dir=tmp, name="restormer"))
+        recs = np.random.default_rng(SEED).integers(0, 65535, (40, 256, 256, 4), dtype=np.uint16)
+        pool = {"clean": torch.from_numpy(recs).to(dev)}
+        fn = eng._scan_fn(MDTA_STEPS_PER_CALL)
+        seeds = iter(range(1 << 20))
+
+        def call():
+            fn(eng.state, pool, [fold_in(SEED, next(seeds)) for _ in range(MDTA_STEPS_PER_CALL)])
+
+        call()
+        call()
+        torch.cuda.synchronize()
+        attention.mdta.launches = 0
+        calls, t0 = 3, time.perf_counter()
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / (calls * MDTA_STEPS_PER_CALL)
+        launches, steps = attention.mdta.launches, calls * MDTA_STEPS_PER_CALL
+        losses = fn.losses.float().cpu()
+        check(graph_replays(fn) == calls + 1, f"[15] {graph_replays(fn)} replays")
+        check(launches == 88 * steps, f"[15] {launches} mdta launches in {steps} pooled steps")
+        check(bool(torch.isfinite(losses).all()), f"[15] pooled losses {losses.tolist()}")
+        eng.release_graphs()
+        del eng, fn, pool
+    torch.cuda.empty_cache()
+    print(f"[15] pooled restormer dim 48, batch 4 of 256^2, K = {MDTA_STEPS_PER_CALL}: {ms:.2f} "
+          f"ms a step over {calls} replays, mdta launches {launches} in {steps} steps "
+          f"({launches / steps:.1f} a step) on {card}", flush=True)
+    return {"build_s": build_s, "registers": regs, "rows": rows, "max_rel": worst,
+            "step": step, "launches": launches, "steps": steps, "pooled_step_ms": ms}
+
+
+def mdta_entry(p15) -> dict:
+    """The attention's entry of the kernels' JSON line."""
+    from eld_tpu_torch.models.mdta import SOURCES
+
+    return {"name": "mdta", "route": "cuda", "source": f"eld_tpu_torch/csrc/{SOURCES[0]}",
+            "replaces": None,  # eld_tpu has no Restormer
+            # the pooled main path's own calls, counted from 0
+            "launches": p15["launches"], "launches_per_step": p15["launches"] / p15["steps"],
+            "max_rel_err": p15["max_rel"], "step_ms": dict(p15["step"],
+                                                           pooled_step_ms=p15["pooled_step_ms"]),
+            "registers": p15["registers"], "build_s": p15["build_s"]}
 
 
 if __name__ == "__main__":

@@ -4,8 +4,10 @@ Each library is compiled from ``csrc/`` into ``build/eld_tpu_torch/`` at the
 repository root, under a name that carries a hash of its sources and
 flags, so an edited source is rebuilt and an unchanged one is reused.
 The sources have a plain C interface and include no PyTorch headers, so
-a build takes seconds.  There is no fallback: a missing nvcc, a failed
-build or a failed load raises.
+a build takes seconds.  ``start`` runs
+one on a thread of its own, so that nvcc works while the caller sets up,
+and ``load`` waits for it.  There is no fallback: a missing nvcc, a
+failed build or a failed load raises, at ``load``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from typing import Dict, Sequence
 
 from eld_tpu_torch._paths import BUILD_DIR, CSRC_DIR
@@ -24,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_STARTED: Dict[str, threading.Thread] = {}
 
 
 def find_nvcc() -> str:
@@ -69,9 +73,29 @@ def build(name: str, sources: Sequence[str]) -> str:
     return out
 
 
+def start(name: str, sources: Sequence[str]) -> None:
+    """Begin ``build`` on a thread of its own, once per process.  A failed
+    build is left for ``load``, which builds again and raises."""
+    if name in _LOADED or name in _STARTED:
+        return
+
+    def run():
+        try:
+            build(name, sources)
+        except Exception:  # noqa: BLE001 - load() builds again and raises
+            pass
+
+    thread = _STARTED[name] = threading.Thread(target=run, name=f"build {name}")
+    thread.start()
+
+
 def load(name: str, sources: Sequence[str]) -> ctypes.CDLL:
-    """Build if needed and load the library once per process."""
+    """Build if needed (after a started build) and load the library once
+    per process."""
     lib = _LOADED.get(name)
     if lib is None:
+        thread = _STARTED.get(name)
+        if thread is not None:
+            thread.join()
         lib = _LOADED[name] = ctypes.CDLL(build(name, sources))
     return lib

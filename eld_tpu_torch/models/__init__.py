@@ -4,6 +4,7 @@ An unknown name raises the same ``KeyError`` as eld_tpu."""
 
 from typing import Callable, Dict
 
+from eld_tpu_torch.models.restormer import Restormer
 from eld_tpu_torch.models.unet import UNetSeeInDark
 from eld_tpu_torch.models.unet_s2d import unet_s2d as _unet_s2d
 
@@ -31,6 +32,22 @@ def unet_s2d(in_channels: int = 4, out_channels: int = 4, **kw):
 def unet_s2d4(in_channels: int = 4, out_channels: int = 4, **kw):
     """The block-4 space-to-depth variant."""
     return _unet_s2d(in_channels, out_channels, block=4, **kw)
+
+
+@register_arch("restormer")
+def restormer(in_channels: int = 4, out_channels: int = 4, base_width: int = 48,
+              remat: bool = False, skip_mode: str = "split", upsample: str = "convt",
+              skip_dtype=None) -> Restormer:
+    """Restormer at its published settings, ``base_width`` its first level's
+    width (``dim``).  The U-Net's options are refused by name away from the
+    defaults every entry point passes."""
+    for name, value, default in (("skip_mode", skip_mode, "split"),
+                                 ("upsample", upsample, "convt"),
+                                 ("skip_dtype (--skip_bf16)", skip_dtype, None)):
+        if value != default:
+            raise ValueError(f"restormer has no U-Net {name}: got {value!r}; it takes only "
+                             f"the default {default!r}")
+    return Restormer(in_channels, out_channels, dim=base_width, remat=remat)
 
 
 def build_arch(name: str, in_channels: int, out_channels: int, **kw):

@@ -44,6 +44,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_BLOCKS = {}  # by card index
 
 
+def start_build() -> None:
+    """Begin building the kernels' library on a thread (``_build.start``)."""
+    _build.start("conv_epilogue", SOURCES)
+
+
 def load_library() -> ctypes.CDLL:
     """Build (first use) and bind the kernels' shared library."""
     lib = _build.load("conv_epilogue", SOURCES)

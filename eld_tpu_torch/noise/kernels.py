@@ -69,6 +69,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def start_build() -> None:
+    """Begin building the kernel's library on a thread (``_build.start``)."""
+    _build.start("noise_synth", SOURCES)
+
+
 def load_library() -> ctypes.CDLL:
     """Build (first use) and bind the kernel's shared library."""
     lib = _build.load("noise_synth", SOURCES)

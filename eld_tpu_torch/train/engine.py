@@ -47,6 +47,7 @@ from eld_tpu_torch.core.packing import crop_center
 from eld_tpu_torch.data.loader import prefetch_to_device, readahead
 from eld_tpu_torch.models import build_arch
 from eld_tpu_torch.models.netutils import param_count
+from eld_tpu_torch.noise import kernels as noise_kernels
 from eld_tpu_torch.noise.params import load_camera_params
 from eld_tpu_torch.ops.correct import illuminance_correct_batch
 from eld_tpu_torch.ops.metrics import quality_assess
@@ -123,6 +124,16 @@ class Engine:
                 upsample=cfg.upsample,
                 skip_dtype=torch.bfloat16 if cfg.skip_bf16 else None,
             )
+        synthetic = cfg.noise not in (None, "", "none")
+        if self.device.type == "cuda":
+            # nvcc builds the kernels this run launches, each on a thread of
+            # its own, while the card and the trainers are set up; the first
+            # launch waits for its build
+            builds = getattr(model, "KERNEL_BUILDS", ())
+            if cfg.is_train and synthetic:
+                builds += (noise_kernels.start_build,)
+            for start_build in builds:
+                start_build()
         model = model.to(self.device)
         if self.device.type == "cuda":
             model = model.to(memory_format=torch.channels_last)
@@ -144,7 +155,6 @@ class Engine:
         if cfg.is_train:
             if cfg.multihost:
                 self._forward = _data_parallel(model)
-            synthetic = cfg.noise not in (None, "", "none")
             if synthetic:
                 self.bank = load_camera_params(include=cfg.include, exclude=cfg.exclude,
                                                device=self.device)

@@ -58,6 +58,7 @@ from torch import nn
 
 from eld_tpu_torch.models.epilogue import bias_lrelu
 from eld_tpu_torch.models.losses import init_loss
+from eld_tpu_torch.models.mdta import mdta
 from eld_tpu_torch.noise.kernels import seed_int64, synthesize_kernel
 from eld_tpu_torch.noise.model import synthesize
 from eld_tpu_torch.noise.params import CameraParamsBank, sample_params_batch, take_rows
@@ -450,8 +451,9 @@ class _GraphCall:
     call with its own seeds; the next captures (executing nothing) and
     replays, and every later call replays.  A replay runs no Python, so
     the call advances ``state.step`` by ``steps``, and
-    ``synthesize_kernel.launches`` and ``bias_lrelu.launches`` (the conv
-    epilogue's, ``models/epilogue.py``) by the launches the graph holds.  A call
+    ``synthesize_kernel.launches``, ``bias_lrelu.launches`` (the conv
+    epilogue's, ``models/epilogue.py``) and ``mdta.launches`` (Restormer's
+    attention, ``models/mdta.py``) by the launches the graph holds.  A call
     returns copies of the graph's outputs, which the next replay
     overwrites.  ``pool``: a memory pool shared with other graphs that
     replay one at a time on one stream (None: the graph's own).  A capture
@@ -487,6 +489,7 @@ class _GraphCall:
         self.out: Tuple[torch.Tensor, ...] = ()  # the graph's outputs
         self.launches = 0  # K1's
         self.epilogue_launches = 0
+        self.mdta_launches = 0
         self.replays = 0
 
     def reset(self):
@@ -566,6 +569,7 @@ class _GraphCall:
             state.step += self.steps
         synthesize_kernel.launches += self.launches
         bias_lrelu.launches += self.epilogue_launches
+        mdta.launches += self.mdta_launches
         with span("eld.graph.outputs"):
             return tuple(t.clone() for t in self.out)
 
@@ -597,16 +601,19 @@ class _GraphCall:
                 graph.register_generator_state(gen)
             step = state.step if state is not None else 0
             launches, epilogue = synthesize_kernel.launches, bias_lrelu.launches
+            attention = mdta.launches
             try:
                 with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
                     out = self._run(state, inputs)
                 self.launches = synthesize_kernel.launches - launches
                 self.epilogue_launches = bias_lrelu.launches - epilogue
+                self.mdta_launches = mdta.launches - attention
             finally:
                 # the capture ran the call's Python, not its device work
                 if state is not None:
                     state.step = step
                 synthesize_kernel.launches, bias_lrelu.launches = launches, epilogue
+                mdta.launches = attention
             self.graph, self.out = graph, out
 
 

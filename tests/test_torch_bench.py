@@ -16,6 +16,7 @@
 * ``roofline`` returns eld_tpu's record keys.
 """
 
+import collections
 import importlib.util
 import json
 import os
@@ -34,6 +35,7 @@ from eld_tpu.noise import load_camera_params as jax_bank
 from eld_tpu.tools import bench_variants as jax_bench_variants
 from eld_tpu.train import create_train_state as jax_create_train_state
 from eld_tpu.train import make_train_step as jax_make_train_step
+from eld_tpu_torch.models import build_arch
 from eld_tpu_torch.models.epilogue import bias_lrelu
 from eld_tpu_torch.noise.kernels import synthesize_kernel
 from eld_tpu_torch.tools import bench_variants, roofline
@@ -373,3 +375,22 @@ def test_roofline_run_adds_eld_tpus_run_keys():
     assert rec["graph"] is False and rec["graph_replays"] == 0  # the CPU steps eagerly
     assert rec["ridge_flop_per_byte"] == round(roofline.H100_BF16_TFLOPS
                                                / roofline.H100_HBM_GBS * 1e3, 1)
+
+
+def test_chip_smokes_attention_shapes_are_a_restormer_steps():
+    """chip_smoke.py phase 15's shapes are the 44 attentions of a Restormer
+    step at dim 48 and batch 4 of 256^2 (4 + 6 + 6 + 8 blocks down, 6 + 6 up,
+    4 at level 1 and 4 refinement, whose heads hold 96 channels), and its
+    byte bound is the benchmark's ``mdta_bytes`` there, 8,304,721,920; the
+    kernel names it reports come from the mangled names ptxas prints."""
+    smoke = _chip_smoke()
+    model = build_arch("restormer", 4, 4, base_width=48)
+    heads_c = collections.Counter((m.num_heads, m.qkv.in_channels // m.num_heads)
+                                  for name, m in model.named_modules() if name.endswith(".attn"))
+    assert heads_c == {(heads, c): b for *_, heads, c, b in smoke.MDTA_LEVELS}
+    assert sum(heads_c.values()) == 44
+    assert sum(smoke.MDTA_BYTES * n * h * w * heads * c * b
+               for n, h, w, heads, c, b in smoke.MDTA_LEVELS) == 8_304_721_920
+    assert smoke._mdta_kernel_name(
+        "_ZN39_GLOBAL__N__1d150f53_7_mdta_cu_116edd8510mdta_dq_dkILi96EEEvPK13__nv_bfloat16"
+        "PKfS5_S5_S5_PS1_lii") == "mdta_dq_dk<96>"

@@ -1,5 +1,5 @@
 """The port's noise kernel (and its device-seed entry), the conv epilogue's
-kernels, pooled trainer
+kernels, Restormer's attention (MDTA) kernels, pooled trainer
 and per-step train step (and their CUDA graphs against the eager
 paths, one process and data-parallel in a world-1 NCCL group), eval
 forward (and its CUDA graph), ISP, serving
@@ -27,7 +27,9 @@ from eld_tpu_torch.core import emor, isp
 from eld_tpu_torch.data.loader import pool_to_device
 from eld_tpu_torch.data.patchstore import PatchStore, PatchStoreWriter
 from eld_tpu_torch.models import build_arch, epilogue
+from eld_tpu_torch.models import mdta as attention
 from eld_tpu_torch.models.epilogue import bias_lrelu
+from eld_tpu_torch.models.mdta import mdta
 from eld_tpu_torch.noise.kernels import kernel_draws, seed_tensor, synthesize_kernel
 from eld_tpu_torch.noise.model import noise_core
 from eld_tpu_torch.noise.params import load_camera_params, sample_params_batch
@@ -374,6 +376,18 @@ def test_captured_pooled_calls_equal_the_eager_loop(cuda_device, tmp_path, arch)
     parameters are equal bit for bit (cuDNN held to deterministic
     algorithms), and so are state.step and K1's launches; a rate set
     between calls holds in the replay (at rate 0 it moves nothing)."""
+    _captured_pooled_calls_equal_the_eager_loop(cuda_device, tmp_path, arch, 8)
+
+
+@pytest.mark.cuda
+def test_captured_pooled_restormer_calls_equal_the_eager_loop(cuda_device, tmp_path):
+    """The same for Restormer at its published widths (dim 48, so the MDTA
+    kernels run, inside the graph): bit for bit, the kernels having no
+    float atomics."""
+    _captured_pooled_calls_equal_the_eager_loop(cuda_device, tmp_path, "restormer", 48)
+
+
+def _captured_pooled_calls_equal_the_eager_loop(cuda_device, tmp_path, arch, width):
     recs = onp.random.default_rng(3).integers(0, 65535, (6, 64, 64, 4), dtype=onp.uint16)
     pool = {"clean": torch.from_numpy(recs).to(cuda_device)}
     deterministic = torch.backends.cudnn.deterministic
@@ -381,9 +395,10 @@ def test_captured_pooled_calls_equal_the_eager_loop(cuda_device, tmp_path, arch)
     runs = {}
     try:
         for arm in ("eager", "graph"):
-            eng = Engine(Config(device="cuda", netG=arch, noise="eld", include=4, base_width=8,
-                                batch_size=2, bf16=True, is_train=True, no_log=True,
-                                no_verbose=True, checkpoints_dir=str(tmp_path), name=arm))
+            eng = Engine(Config(device="cuda", netG=arch, noise="eld", include=4,
+                                base_width=width, batch_size=2, bf16=True, is_train=True,
+                                no_log=True, no_verbose=True, checkpoints_dir=str(tmp_path),
+                                name=arm))
             eager = {k: make_train_scan(eng.model, noise_model="eld", bank=eng.bank, batch=2,
                                         steps_per_call=k, autocast_dtype=torch.bfloat16,
                                         capture=False) for k in (3, 2)}
@@ -707,4 +722,120 @@ def test_pooled_calls_launch_the_epilogue_36_times_a_step(cuda_device, tmp_path,
         counts.append(bias_lrelu.launches - before)
     torch.cuda.synchronize(cuda_device)
     assert counts == [360] * 3 and graph_replays(fn) == 2
+    assert onp.isfinite(fn.losses.cpu().numpy()).all()
+
+
+# ---- Restormer's attention (MDTA) ----------------------------------------------------
+
+# (n, h, w, heads, c): head sizes 48 and 96, 8^2 to 256^2 pixels, batch 1 to 4, ragged
+# frames (37 x 29, 5 x 6) and many heads (8, the latent's)
+MDTA_SHAPES = [(1, 8, 8, 1, 48), (2, 37, 29, 2, 48), (3, 5, 6, 8, 48), (4, 32, 32, 8, 48),
+               (4, 128, 128, 2, 48), (4, 256, 256, 1, 48), (2, 16, 16, 1, 96),
+               (4, 64, 64, 1, 96), (4, 256, 256, 1, 96)]
+
+
+# the largest relative errors (norm of the difference over the composition's norm) the
+# kernels may show.  Read on the card (PERF.md): out, dq, dk, dv 2.32e-3 to 2.44e-3
+# at every shape, the bf16 rounding of the outputs themselves (the composition under bf16
+# autocast reads the same for out and dv, and 3.9e-3 to 4.2e-3 for dq and dk); the
+# temperature's gradient up to 1.7e-5 (autocast's up to 1.6e-2).  A term left out of the
+# algebra reads 1e-1 or more.
+MDTA_REL = {"out": 4e-3, "dq": 4e-3, "dk": 4e-3, "dv": 4e-3, "dt": 1e-4}
+
+
+def _mdta_inputs(device, n, h, w, heads, c):
+    gen = torch.Generator(device=device).manual_seed(n * h * w + c)
+    qkv = torch.randn((n, h, w, 3 * heads * c), generator=gen, device=device).to(torch.bfloat16)
+    temp = 0.5 + torch.rand((heads, 1, 1), generator=gen, device=device)
+    dout = torch.randn((n, h, w, heads * c), generator=gen, device=device).to(torch.bfloat16)
+    return qkv, temp, dout
+
+
+def _rel(got, ref):
+    return float((got.float() - ref.float()).norm() / ref.float().norm())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", MDTA_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_mdta_kernels_equal_the_composition(cuda_device, shape):
+    """The forward and backward runs against the composition in f32 on the
+    same bf16 inputs (``plain_forward``, ``plain_backward``, which the CPU
+    tests hold to autograd): A, q̂ k̂ᵀ and the norms to f32's rounding over
+    up to 65,536-pixel sums (atol 1e-4, rtol 1e-4); out, dq, dk, dv and
+    the temperature's gradient within MDTA_REL of the composition's norm,
+    where the kernels round A and M to bf16 for the tensor cores as
+    autocast rounds them, and round each output once."""
+    n, h, w, heads, c = shape
+    dim = heads * c
+    qkv, temp, dout = _mdta_inputs(cuda_device, n, h, w, heads, c)
+    lib = attention.load_library()
+    out, a, g, norms = attention.launch_forward(lib, qkv, temp, heads)
+    dqkv, dtemp = attention.launch_backward(lib, dout, qkv, temp, heads, a, g, norms)
+    ref = attention.plain_forward(qkv.float(), temp, heads)
+    dref, dtref = attention.plain_backward(dout.float(), qkv.float(), temp, heads, *ref[1:])
+    torch.cuda.synchronize(cuda_device)
+    assert out.dtype == dqkv.dtype == torch.bfloat16 and dtemp.shape == temp.shape
+    for got, want in zip((a, g, norms), ref[1:]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert _rel(out, ref[0]) <= MDTA_REL["out"]
+    for name, sl in (("dq", slice(0, dim)), ("dk", slice(dim, 2 * dim)),
+                     ("dv", slice(2 * dim, 3 * dim))):
+        assert _rel(dqkv[..., sl], dref[..., sl]) <= MDTA_REL[name], name
+    assert _rel(dtemp, dtref) <= MDTA_REL["dt"]
+
+
+@pytest.mark.cuda
+def test_mdta_runs_are_bit_identical_run_to_run(cuda_device):
+    """No float atomics: two runs each way on the same inputs give the same
+    bits, every output."""
+    for shape in [(4, 256, 256, 1, 96), (4, 32, 32, 8, 48), (2, 37, 29, 2, 48)]:
+        qkv, temp, dout = _mdta_inputs(cuda_device, *shape)
+        lib = attention.load_library()
+        runs = []
+        for _ in range(2):
+            fwd = attention.launch_forward(lib, qkv, temp, shape[3])
+            runs.append(fwd + attention.launch_backward(lib, dout, qkv, temp, shape[3],
+                                                        *fwd[1:]))
+        assert all(torch.equal(x, y) for x, y in zip(*runs)), shape
+
+
+@pytest.mark.cuda
+def test_mdta_on_the_card_dispatches_by_head_size_and_dtype(cuda_device):
+    """bf16 at head sizes 48 and 96 runs the kernels (counted); f32 and other
+    head sizes are refused on the card by name (nothing runs, nothing is
+    counted), forward and backward."""
+    before = mdta.launches
+    qkv, temp, dout = _mdta_inputs(cuda_device, 2, 8, 8, 2, 48)
+    mdta(qkv, temp, 2)
+    assert mdta.launches == before + 1
+    for x, heads, what in ((qkv.float(), 2, "torch.float32"), (qkv, 3, "32 channels a head")):
+        t = torch.ones((heads, 1, 1), device=cuda_device)
+        with pytest.raises(ValueError, match=what):
+            mdta(x, t, heads)
+        small = attention.plain_forward(x, t, heads)
+        with pytest.raises(ValueError, match=what):
+            attention._backward(dout[..., :x.shape[-1] // 3].to(x.dtype), x, t, heads,
+                                *small[1:])
+        assert mdta.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_pooled_restormer_calls_launch_mdta_88_times_a_step(cuda_device, tmp_path):
+    """The benchmark's configuration (dim 48, bf16, batch 4) in the Engine's
+    pooled trainer at K = 10: the eager call, the capture's replay and a
+    replay each count 880 launches of the attention, 44 forward and 44
+    backward a step."""
+    recs = onp.random.default_rng(5).integers(0, 65535, (8, 64, 64, 4), dtype=onp.uint16)
+    pool = {"clean": torch.from_numpy(recs).to(cuda_device)}
+    eng = Engine(Config(device="cuda", netG="restormer", noise="eld", include=4, base_width=48,
+                        batch_size=4, bf16=True, is_train=True, no_log=True, no_verbose=True,
+                        checkpoints_dir=str(tmp_path), name="restormer"))
+    fn = eng._scan_fn(10)
+    counts = []
+    for call in range(3):
+        before = mdta.launches
+        fn(eng.state, pool, [fold_in(1, 10 * call + j) for j in range(10)])
+        counts.append(mdta.launches - before)
+    torch.cuda.synchronize(cuda_device)
+    assert counts == [880] * 3 and graph_replays(fn) == 2
     assert onp.isfinite(fn.losses.cpu().numpy()).all()

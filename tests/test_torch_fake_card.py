@@ -4,8 +4,9 @@ the graph path (``train/steps.py::_GraphCall``) runs on the CPU.
 ``install_fake_card(setattr)`` routes CPU tensors down the graph path: a
 graph that counts its replays and remembers its registered generators, a
 capture that runs the call's Python for real on the CPU, streams that do
-nothing, and K1's wrapper and the conv epilogue's plain version
-(``models/epilogue.py``) counting their CPU calls as launches.
+nothing, and K1's wrapper and the plain versions of the conv epilogue
+(``models/epilogue.py``) and of Restormer's attention (``models/mdta.py``)
+counting their CPU calls as launches.
 With ``_RecordingGraph`` a replay does nothing; with ``_ReplayingGraph``
 it runs the captured call's Python again on the graph's buffers and
 draws and writes its outputs into the graph's own, as a replay on the
@@ -24,6 +25,7 @@ import pytest
 import torch
 
 from eld_tpu_torch.models import build_arch, epilogue
+from eld_tpu_torch.models import mdta as attention
 from eld_tpu_torch.models.epilogue import bias_lrelu
 from eld_tpu_torch.noise.params import load_camera_params
 from eld_tpu_torch.train import steps
@@ -82,12 +84,13 @@ class _ReplayingGraph(_RecordingGraph):
             return
         state, kernel = self.state, steps.synthesize_kernel
         step, launches = (state.step if state is not None else 0), kernel.launches
-        epilogue = bias_lrelu.launches
+        epilogue, mdta = bias_lrelu.launches, attention.mdta.launches
         for out, new in zip(self.call.out, self.call._run(state, self.inputs)):
             out.copy_(new)
         if state is not None:
             state.step = step
         kernel.launches, bias_lrelu.launches = launches, epilogue
+        attention.mdta.launches = mdta
 
 
 class _FakeStream:
@@ -109,9 +112,9 @@ def install_fake_card(setattr, graph=_RecordingGraph):
 
     counting_kernel.launches = 0
 
-    def counting(plain):
+    def counting(plain, counter=bias_lrelu):
         def run(*args):
-            bias_lrelu.launches += 1
+            counter.launches += 1
             return plain(*args)
         return run
 
@@ -128,6 +131,8 @@ def install_fake_card(setattr, graph=_RecordingGraph):
     setattr(steps, "synthesize_kernel", counting_kernel)
     setattr(epilogue, "plain_forward", counting(epilogue.plain_forward))
     setattr(epilogue, "plain_backward", counting(epilogue.plain_backward))
+    setattr(attention, "plain_forward", counting(attention.plain_forward, attention.mdta))
+    setattr(attention, "plain_backward", counting(attention.plain_backward, attention.mdta))
     setattr(steps._GraphCall, "_capture", capture_and_link)
     setattr(torch.cuda, "CUDAGraph", graph)
     setattr(torch.cuda, "graph", capture)

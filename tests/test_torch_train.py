@@ -10,6 +10,8 @@ gradient entry is near 0 the two frameworks' rounding can flip its sign.
 import os
 import subprocess
 import sys
+import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -337,6 +339,38 @@ def test_profile_traces_and_leaves_the_parameters_unchanged(tmp_path, cli):
     assert any("conv" in e.get("name", "") for e in events)
     if cli == "train_syn_pooled":
         assert any(e.get("name") == "eld.pool.call" for e in events)
+
+
+def test_load_waits_for_a_started_build_and_builds_again_after_a_failed_one(monkeypatch):
+    """``_build.start`` runs the build on a thread of its own, once per
+    library; ``load`` waits for that thread before it builds (here: again,
+    since the started build failed) and loads."""
+    from eld_tpu_torch import _build
+
+    gate, calls = threading.Event(), []
+
+    def build(name, sources):
+        calls.append((name, threading.current_thread().name, gate.is_set()))
+        if len(calls) == 1:
+            gate.wait(10)
+            raise RuntimeError("nvcc failed")
+        return f"lib{name}.so"
+
+    monkeypatch.setattr(_build, "build", build)
+    monkeypatch.setattr(_build, "_STARTED", {})
+    monkeypatch.setattr(_build, "_LOADED", {})
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: ("loaded", path))
+    _build.start("toy", ("toy.cu",))
+    _build.start("toy", ("toy.cu",))
+    for _ in range(1000):
+        if calls:
+            break
+        time.sleep(0.01)
+    threading.Timer(0.2, gate.set).start()
+    assert _build.load("toy", ("toy.cu",)) == ("loaded", "libtoy.so")
+    assert calls == [("toy", "build toy", False), ("toy", threading.current_thread().name, True)]
+    _build.start("toy", ("toy.cu",))  # loaded: nothing more to build
+    assert len(calls) == 2 and _build.load("toy", ("toy.cu",)) == ("loaded", "libtoy.so")
 
 
 def test_package_imports_without_jax_or_nvcc():
