@@ -184,6 +184,19 @@ Phases, one line or block of output each; any failure exits non-zero:
      configuration (--netG restormer --base_width 48 --bf16, batch 4, K =
      10): an eager call and the capture, then three timed replays with
      ``mdta.launches`` reset before them and checked at 88 a step;
+ 16. Restormer's BiasFree LayerNorm (eld_tpu_torch/csrc/layernorm.cu):
+     its build, registers and spills; at the cell's five norm shapes (48
+     channels at 256^2, 96 at 256^2 and 128^2, 192 at 64^2, 384 at 32^2,
+     batch 4) ``biasfree_layernorm`` itself forward and backward in bf16,
+     twice, bit for bit and one launch counted each way, against the f32
+     composition (``plain_forward``, ``plain_backward``) within the card
+     tests' tolerances; the kernels' time alone, the f32 composition under
+     bf16 autocast they replace (``library_ms``: the norm, its cast to
+     bf16 and their backward) and the byte bound (10 bytes a channel-pixel
+     at 3,350 GB/s), per shape and over a step's 88 norms; then the
+     Engine's pooled trainer at the cell's configuration, K = 10: three
+     timed replays with ``biasfree_layernorm.launches`` reset before them
+     and checked at 176 a step;
 and prints the kernels' JSON line, the card line, and a last JSON line
 {"ok": true, "device": {...}}.  It imports nothing of JAX.
 """
@@ -3635,6 +3648,7 @@ def main():
         p13 = phase13(card, tmp, p12)
     p14 = phase14(card)
     p15 = phase15(card)
+    p16 = phase16(card)
 
     from eld_tpu_torch.models import epilogue
     from eld_tpu_torch.noise.kernels import REPLACES, SOURCE_PATH
@@ -3668,7 +3682,8 @@ def main():
         # the pooled main path's own calls (phases 4 and 10c), counted from 0
         "launches": epi_launches, "launches_per_step": epi_launches / epi_steps,
         "step_ms": p14["step"],
-        "registers": p14["registers"], "build_s": p14["build_s"]}, mdta_entry(p15)]}
+        "registers": p14["registers"], "build_s": p14["build_s"]}, mdta_entry(p15),
+        layernorm_entry(p16)]}
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -4001,6 +4016,175 @@ def mdta_entry(p15) -> dict:
             "max_rel_err": p15["max_rel"], "step_ms": dict(p15["step"],
                                                            pooled_step_ms=p15["pooled_step_ms"]),
             "registers": p15["registers"], "build_s": p15["build_s"]}
+
+
+# ---- phase 16 -----------------------------------------------------------
+
+# (dim 48, batch 4 of 256^2): (n, h, w, c, norms a step at that shape)
+LN_LEVELS = [(4, 256, 256, 48, 8), (4, 256, 256, 96, 16), (4, 128, 128, 96, 24),
+             (4, 64, 64, 192, 24), (4, 32, 32, 384, 16)]
+# the least bytes of one norm a channel-pixel, bf16: the forward reads x and
+# writes y, the backward reads x and gy and writes gx
+LN_BYTES = 10
+LN_STEPS_PER_CALL = 10
+
+
+def _ln_kernel_name(mangled: str) -> str:
+    """bfln_<pass><T, N>."""
+    import re
+
+    m = re.search(r"(bfln_[a-z]+)(?:I(\w+?)Li(\d+)E)?", mangled)
+    if not m:
+        return mangled
+    if m.group(2) is None:
+        return m.group(1)
+    dtype = "bf16" if "bfloat16" in m.group(2) else "f32"
+    return f"{m.group(1)}<{dtype}, {m.group(3)}>"
+
+
+def _ln_composition(x, wgt, gy):
+    """What the kernels replace: the norm in f32 PyTorch ops under bf16
+    autocast, its output cast to bf16 for the next conv, and the backward."""
+    import torch
+
+    xg = x.detach().requires_grad_(True)
+    wg = wgt.detach().requires_grad_(True)
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        t = xg.float()
+        var = t.var(dim=1, keepdim=True, unbiased=False)
+        y = (t / torch.sqrt(var + 1e-5) * wg.reshape(1, -1, 1, 1)).to(torch.bfloat16)
+    y.backward(gy)
+    return y, xg.grad, wg.grad
+
+
+def phase16(card):
+    import numpy as np
+    import torch
+
+    from eld_tpu_torch._paths import CSRC_DIR
+    from eld_tpu_torch.config import Config
+    from eld_tpu_torch.models import layernorm
+    from eld_tpu_torch.train.engine import Engine
+    from eld_tpu_torch.train.steps import fold_in, graph_replays
+
+    ln = layernorm.biasfree_layernorm
+    t0 = time.perf_counter()
+    lib = layernorm.load_library()
+    build_s = time.perf_counter() - t0
+    out_dir = os.path.join(HERE, "build", "eld_tpu_torch", "ptxas")
+    os.makedirs(out_dir, exist_ok=True)
+    _, regs = _build_verbose(os.path.join(CSRC_DIR, "layernorm.cu"), out_dir)
+    regs = [dict(r, kernel=_ln_kernel_name(r["kernel"])) for r in regs]
+    print(f"[16] built layernorm in {build_s:.2f} s; " + json.dumps(regs), flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    eps = torch.finfo(torch.bfloat16).eps
+    rows, worst = [], {"y": 0.0, "gx": 0.0, "gw": 0.0}
+    step = {"kernel_ms": 0.0, "fwd_ms": 0.0, "bwd_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    for n, h, w, c, norms in LN_LEVELS:
+        def draw(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+
+        x = (draw(n, h, w, c) * (0.5 + draw(n, h, w, 1).abs()) + draw(n, h, w, 1))
+        x = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+        gy = draw(n, h, w, c).to(torch.bfloat16).permute(0, 3, 1, 2)
+        wgt = 0.5 + torch.rand(c, generator=gen, device=dev)
+        rec = {"shape": [n, h, w, c], "norms": norms}
+        runs = []
+        for _ in range(2):
+            xg, wg = x.clone().requires_grad_(True), wgt.clone().requires_grad_(True)
+            before = ln.launches
+            y = ln(xg, wg)
+            y.backward(gy)
+            check(ln.launches - before == 2, f"[16] {rec['shape']}: the LayerNorm counted "
+                  f"{ln.launches - before} launches for a forward and a backward")
+            runs.append((y.detach(), xg.grad, wg.grad))
+        check(all(torch.equal(a, b) for a, b in zip(*runs)), f"[16] {rec['shape']}: two runs differ")
+        y, gx, gw = runs[0]
+        y_ref = layernorm.plain_forward(x.float(), wgt)
+        gx_ref, gw_ref = layernorm.plain_backward(gy.float(), x.float(), wgt)
+        xf = x.float()
+        r = 1 / torch.sqrt(xf.var(dim=1, keepdim=True, unbiased=False) + layernorm.EPS)
+        gw_scale = (gy.float() * xf * r).abs().sum((0, 2, 3))
+        # each error in the card tests' units: y and gx against eps relative (gx
+        # with an atol of eps of its largest value), gw against 1e-5 of sum |gy x r|
+        rec["err"] = {
+            "y": float(((y.float() - y_ref).abs() / (eps * y_ref.abs()
+                                                     + 1e-6 * y_ref.abs().max())).max()),
+            "gx": float(((gx.float() - gx_ref).abs() / (eps * gx_ref.abs()
+                                                       + eps * gx_ref.abs().max())).max()),
+            "gw": float(((gw - gw_ref).abs() / (1e-5 * gw_scale)).max())}
+        for name, err in rec["err"].items():
+            check(err <= 1.0, f"[16] {rec['shape']} {name}: {err} of the card tests' tolerance")
+            worst[name] = max(worst[name], err)
+        del runs
+        rec["fwd_ms"] = cuda_ms(lambda: layernorm.launch_forward(lib, x, wgt), spin=True)
+        rec["bwd_ms"] = cuda_ms(lambda: layernorm.launch_backward(lib, gy, x, wgt), spin=True)
+        rec["library_ms"] = cuda_ms(lambda: _ln_composition(x, wgt, gy), reps=10, spin=True)
+        rec["bound_ms"] = LN_BYTES * n * h * w * c / HBM_GBS / 1e6
+        rec["pct_of_bound"] = 100 * rec["bound_ms"] / (rec["fwd_ms"] + rec["bwd_ms"])
+        for key in ("fwd_ms", "bwd_ms", "library_ms", "bound_ms"):
+            step[key] += norms * rec[key]
+        step["kernel_ms"] += norms * (rec["fwd_ms"] + rec["bwd_ms"])
+        rows.append(rec)
+        print("[16] " + json.dumps(rec), flush=True)
+        del x, gy
+    step["pct_of_bound"] = 100 * step["bound_ms"] / step["kernel_ms"]
+    print("[16] a step's 88 norms at batch 4 of 256^2: " + json.dumps(
+        {k: round(v, 4) for k, v in step.items()}) + f"  ({card})", flush=True)
+
+    # the main path: the Engine's pooled trainer at the cell's configuration,
+    # K = 10; the eager call and the capture, then timed replays with the
+    # norm's count from 0
+    with tempfile.TemporaryDirectory() as tmp:
+        eng = Engine(Config(device="cuda", netG="restormer", noise="eld", include=4,
+                            base_width=48, batch_size=4, bf16=True, is_train=True, no_log=True,
+                            no_verbose=True, checkpoints_dir=tmp, name="restormer"))
+        recs = np.random.default_rng(SEED).integers(0, 65535, (40, 256, 256, 4), dtype=np.uint16)
+        pool = {"clean": torch.from_numpy(recs).to(dev)}
+        fn = eng._scan_fn(LN_STEPS_PER_CALL)
+        seeds = iter(range(1 << 20))
+        torch.cuda.reset_peak_memory_stats()
+
+        def call():
+            fn(eng.state, pool, [fold_in(SEED, next(seeds)) for _ in range(LN_STEPS_PER_CALL)])
+
+        call()
+        call()
+        torch.cuda.synchronize()
+        ln.launches = 0
+        calls, t0 = 3, time.perf_counter()
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / (calls * LN_STEPS_PER_CALL)
+        launches, steps = ln.launches, calls * LN_STEPS_PER_CALL
+        losses = fn.losses.float().cpu()
+        peak = torch.cuda.max_memory_allocated()
+        check(graph_replays(fn) == calls + 1, f"[16] {graph_replays(fn)} replays")
+        check(launches == 176 * steps, f"[16] {launches} LayerNorm launches in {steps} steps")
+        check(bool(torch.isfinite(losses).all()), f"[16] pooled losses {losses.tolist()}")
+        eng.release_graphs()
+        del eng, fn, pool
+    torch.cuda.empty_cache()
+    print(f"[16] pooled restormer dim 48, batch 4 of 256^2, K = {LN_STEPS_PER_CALL}: {ms:.2f} "
+          f"ms a step over {calls} replays, LayerNorm launches {launches} in {steps} steps "
+          f"({launches / steps:.1f} a step), peak allocated {peak} bytes on {card}", flush=True)
+    return {"build_s": build_s, "registers": regs, "rows": rows, "max_err": worst,
+            "step": step, "launches": launches, "steps": steps, "pooled_step_ms": ms}
+
+
+def layernorm_entry(p16) -> dict:
+    """The LayerNorm's entry of the kernels' JSON line."""
+    from eld_tpu_torch.models.layernorm import SOURCE_PATH
+
+    return {"name": "biasfree_layernorm", "route": "cuda", "source": SOURCE_PATH,
+            "replaces": None,  # eld_tpu has no Restormer
+            # the pooled main path's own calls, counted from 0
+            "launches": p16["launches"], "launches_per_step": p16["launches"] / p16["steps"],
+            "max_err_of_tolerance": p16["max_err"],
+            "step_ms": dict(p16["step"], pooled_step_ms=p16["pooled_step_ms"]),
+            "registers": p16["registers"], "build_s": p16["build_s"]}
 
 
 if __name__ == "__main__":

@@ -8,7 +8,8 @@ A 4-level encoder-decoder of transformer blocks, each
 ``x + MDTA(LN(x))`` then ``x + GDFN(LN(x))``:
 
   * LN: the BiasFree LayerNorm over channels at each pixel,
-    ``x / sqrt(var(x) + 1e-5) * weight`` (var biased, x not centred);
+    ``x / sqrt(var(x) + 1e-5) * weight`` (var biased, x not centred), one
+    hand-written kernel each way on the card (``models/layernorm.py``);
   * MDTA: a 1x1 conv to q, k, v, a 3x3 depthwise conv, the transposed
     attention of ``models/mdta.py`` (one hand-written kernel each way on
     the card), a 1x1 conv out;
@@ -40,13 +41,13 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from eld_tpu_torch.models.layernorm import biasfree_layernorm, start_build as _start_ln_build
 from eld_tpu_torch.models.mdta import mdta, start_build as _start_mdta_build
 
 NUM_BLOCKS = (4, 6, 6, 8)
 REFINEMENT_BLOCKS = 4
 HEADS = (1, 2, 4, 8)
 FFN_EXPANSION = 2.66
-LN_EPS = 1e-5
 
 
 def _cl(x: torch.Tensor) -> torch.Tensor:
@@ -61,16 +62,16 @@ class _BiasFreeLayerNorm(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """The BiasFree LayerNorm over the channels of each pixel, in f32."""
+    """The BiasFree LayerNorm over the channels of each pixel, in f32 and
+    rounded to x's dtype (``models/layernorm.py``: one kernel each way on
+    the card)."""
 
     def __init__(self, dim: int):
         super().__init__()
         self.body = _BiasFreeLayerNorm(dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.float()
-        var = x.var(dim=1, keepdim=True, unbiased=False)
-        return x / torch.sqrt(var + LN_EPS) * self.body.weight.reshape(1, -1, 1, 1)
+        return biasfree_layernorm(x, self.body.weight)
 
 
 class Attention(nn.Module):
@@ -152,7 +153,7 @@ class Upsample(nn.Module):
 
 
 class Restormer(nn.Module):
-    KERNEL_BUILDS = (_start_mdta_build,)  # the libraries its card path launches
+    KERNEL_BUILDS = (_start_mdta_build, _start_ln_build)  # the libraries its card path launches
 
     def __init__(self, in_channels: int = 4, out_channels: int = 4, dim: int = 48,
                  num_blocks: Sequence[int] = NUM_BLOCKS,

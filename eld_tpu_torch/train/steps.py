@@ -57,6 +57,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from eld_tpu_torch.models.epilogue import bias_lrelu
+from eld_tpu_torch.models.layernorm import biasfree_layernorm
 from eld_tpu_torch.models.losses import init_loss
 from eld_tpu_torch.models.mdta import mdta
 from eld_tpu_torch.noise.kernels import seed_int64, synthesize_kernel
@@ -452,8 +453,9 @@ class _GraphCall:
     replays, and every later call replays.  A replay runs no Python, so
     the call advances ``state.step`` by ``steps``, and
     ``synthesize_kernel.launches``, ``bias_lrelu.launches`` (the conv
-    epilogue's, ``models/epilogue.py``) and ``mdta.launches`` (Restormer's
-    attention, ``models/mdta.py``) by the launches the graph holds.  A call
+    epilogue's, ``models/epilogue.py``), ``mdta.launches`` (Restormer's
+    attention, ``models/mdta.py``) and ``biasfree_layernorm.launches`` (its
+    LayerNorm, ``models/layernorm.py``) by the launches the graph holds.  A call
     returns copies of the graph's outputs, which the next replay
     overwrites.  ``pool``: a memory pool shared with other graphs that
     replay one at a time on one stream (None: the graph's own).  A capture
@@ -490,6 +492,7 @@ class _GraphCall:
         self.launches = 0  # K1's
         self.epilogue_launches = 0
         self.mdta_launches = 0
+        self.layernorm_launches = 0
         self.replays = 0
 
     def reset(self):
@@ -570,6 +573,7 @@ class _GraphCall:
         synthesize_kernel.launches += self.launches
         bias_lrelu.launches += self.epilogue_launches
         mdta.launches += self.mdta_launches
+        biasfree_layernorm.launches += self.layernorm_launches
         with span("eld.graph.outputs"):
             return tuple(t.clone() for t in self.out)
 
@@ -601,19 +605,20 @@ class _GraphCall:
                 graph.register_generator_state(gen)
             step = state.step if state is not None else 0
             launches, epilogue = synthesize_kernel.launches, bias_lrelu.launches
-            attention = mdta.launches
+            attention, norm = mdta.launches, biasfree_layernorm.launches
             try:
                 with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
                     out = self._run(state, inputs)
                 self.launches = synthesize_kernel.launches - launches
                 self.epilogue_launches = bias_lrelu.launches - epilogue
                 self.mdta_launches = mdta.launches - attention
+                self.layernorm_launches = biasfree_layernorm.launches - norm
             finally:
                 # the capture ran the call's Python, not its device work
                 if state is not None:
                     state.step = step
                 synthesize_kernel.launches, bias_lrelu.launches = launches, epilogue
-                mdta.launches = attention
+                mdta.launches, biasfree_layernorm.launches = attention, norm
             self.graph, self.out = graph, out
 
 

@@ -394,3 +394,26 @@ def test_chip_smokes_attention_shapes_are_a_restormer_steps():
     assert smoke._mdta_kernel_name(
         "_ZN39_GLOBAL__N__1d150f53_7_mdta_cu_116edd8510mdta_dq_dkILi96EEEvPK13__nv_bfloat16"
         "PKfS5_S5_S5_PS1_lii") == "mdta_dq_dk<96>"
+
+
+def test_chip_smokes_layernorm_shapes_are_a_restormer_steps():
+    """chip_smoke.py phase 16's shapes are the 88 norms of a Restormer step at
+    dim 48 and batch 4 of 256^2 (two a block, each at its level's width and
+    pixel pitch), and its byte bound is ``metrics/ln.roofline_pct.py``'s
+    count there, 7,549,747,200; the kernel names it reports come from the
+    mangled names ptxas prints."""
+    smoke = _chip_smoke()
+    pitch = {"encoder_level1": 1, "decoder_level1": 1, "refinement": 1, "encoder_level2": 2,
+             "decoder_level2": 2, "encoder_level3": 4, "decoder_level3": 4, "latent": 8}
+    model = build_arch("restormer", 4, 4, base_width=48)
+    norms = collections.Counter((256 // pitch[name.split(".")[0]], m.body.weight.numel())
+                                for name, m in model.named_modules()
+                                if name.endswith((".norm1", ".norm2")))
+    assert norms == {(h, c): k for _, h, _, c, k in smoke.LN_LEVELS}
+    assert sum(norms.values()) == 88
+    assert sum(smoke.LN_BYTES * n * h * w * c * k
+               for n, h, w, c, k in smoke.LN_LEVELS) == 7_549_747_200
+    assert smoke._ln_kernel_name(
+        "_ZN12_GLOBAL__N_18bfln_bwdI13__nv_bfloat16Li3EEEvPKT_S4_PKfPS2_Pflii") \
+        == "bfln_bwd<bf16, 3>"
+    assert smoke._ln_kernel_name("_ZN12_GLOBAL__N_19bfln_wsumEPKfPfii") == "bfln_wsum"

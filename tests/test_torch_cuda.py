@@ -1,5 +1,5 @@
 """The port's noise kernel (and its device-seed entry), the conv epilogue's
-kernels, Restormer's attention (MDTA) kernels, pooled trainer
+kernels, Restormer's attention (MDTA) and LayerNorm kernels, pooled trainer
 and per-step train step (and their CUDA graphs against the eager
 paths, one process and data-parallel in a world-1 NCCL group), eval
 forward (and its CUDA graph), ISP, serving
@@ -26,9 +26,10 @@ from eld_tpu_torch.config import Config
 from eld_tpu_torch.core import emor, isp
 from eld_tpu_torch.data.loader import pool_to_device
 from eld_tpu_torch.data.patchstore import PatchStore, PatchStoreWriter
-from eld_tpu_torch.models import build_arch, epilogue
+from eld_tpu_torch.models import build_arch, epilogue, layernorm
 from eld_tpu_torch.models import mdta as attention
 from eld_tpu_torch.models.epilogue import bias_lrelu
+from eld_tpu_torch.models.layernorm import biasfree_layernorm
 from eld_tpu_torch.models.mdta import mdta
 from eld_tpu_torch.noise.kernels import kernel_draws, seed_tensor, synthesize_kernel
 from eld_tpu_torch.noise.model import noise_core
@@ -838,4 +839,112 @@ def test_pooled_restormer_calls_launch_mdta_88_times_a_step(cuda_device, tmp_pat
         counts.append(mdta.launches - before)
     torch.cuda.synchronize(cuda_device)
     assert counts == [880] * 3 and graph_replays(fn) == 2
+    assert onp.isfinite(fn.losses.cpu().numpy()).all()
+
+
+# ---- Restormer's BiasFree LayerNorm ---------------------------------------------------
+
+# (n, h, w, c): the benchmark cell's five norm shapes (dim 48, batch 4 of 256^2), a ragged
+# frame with an odd pixel count, and the narrowest and widest channels the kernels take
+LN_SHAPES = [(4, 256, 256, 48), (4, 256, 256, 96), (4, 128, 128, 96), (4, 64, 64, 192),
+             (4, 32, 32, 384), (3, 37, 29, 96), (1, 5, 7, 8), (2, 9, 11, 512)]
+
+
+def _ln_inputs(device, shape, dtype):
+    n, h, w, c = shape
+    gen = torch.Generator(device=device).manual_seed(n * h * w + c)
+
+    def draw(*s):
+        return torch.randn(s, generator=gen, device=device)
+
+    x = (draw(n, h, w, c) * (0.5 + draw(n, h, w, 1).abs()) + draw(n, h, w, 1)).to(dtype)
+    gy = draw(n, h, w, c).to(dtype)
+    wgt = 0.5 + torch.rand(c, generator=gen, device=device)
+    return x.permute(0, 3, 1, 2), wgt, gy.permute(0, 3, 1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", LN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_layernorm_kernels_equal_the_composition(cuda_device, shape, dtype):
+    """The forward and backward runs against the f32 composition on the same
+    inputs (``plain_forward`` and ``plain_backward`` in f32, which the CPU
+    tests hold to the model's old formula and to autograd in f64).  In bf16
+    y and gx round once: within one bf16 eps relative, and gx within one eps
+    of its largest value where its two terms cancel; in f32 the same at
+    1e-5 and 1e-4, f32 sums in other orders.  gw within 1e-5 of the
+    channel's sum of |gy x r| over up to 262,144 pixels."""
+    x, wgt, gy = _ln_inputs(cuda_device, shape, dtype)
+    lib = layernorm.load_library()
+    y = layernorm.launch_forward(lib, x, wgt)
+    gx, gw = layernorm.launch_backward(lib, gy, x, wgt)
+    y_ref = layernorm.plain_forward(x.float(), wgt)
+    gx_ref, gw_ref = layernorm.plain_backward(gy.float(), x.float(), wgt)
+    torch.cuda.synchronize(cuda_device)
+    assert y.dtype == gx.dtype == dtype and gw.dtype == torch.float32
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    tol = torch.finfo(torch.bfloat16).eps if dtype == torch.bfloat16 else None
+    y_tol, gx_tol = (tol, tol) if tol else (1e-5, 1e-4)
+    torch.testing.assert_close(y.float(), y_ref, rtol=y_tol,
+                               atol=1e-6 * float(y_ref.abs().max()))
+    torch.testing.assert_close(gx.float(), gx_ref, rtol=gx_tol,
+                               atol=(tol or 1e-5) * float(gx_ref.abs().max()))
+    xf = x.float()
+    r = 1 / torch.sqrt(xf.var(dim=1, keepdim=True, unbiased=False) + layernorm.EPS)
+    bound = 1e-5 * (gy.float() * xf * r).abs().sum((0, 2, 3))
+    assert bool(((gw - gw_ref).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_layernorm_runs_are_bit_identical_run_to_run(cuda_device, dtype):
+    """No float atomics: two runs each way on the same inputs give the same
+    bits, y, gx and gw alike."""
+    for shape in [(4, 256, 256, 48), (4, 32, 32, 384), (3, 37, 29, 96)]:
+        x, wgt, gy = _ln_inputs(cuda_device, shape, dtype)
+        lib = layernorm.load_library()
+        runs = [(layernorm.launch_forward(lib, x, wgt),)
+                + layernorm.launch_backward(lib, gy, x, wgt) for _ in range(2)]
+        assert all(torch.equal(a, b) for a, b in zip(*runs)), shape
+
+
+@pytest.mark.cuda
+def test_layernorm_on_the_card_refuses_what_the_kernels_do_not_take(cuda_device):
+    """bf16 at 48 channels runs the kernels (one launch counted each way); 44
+    channels or a uint8 x is refused by name, forward and backward, and
+    nothing is launched or counted."""
+    before = biasfree_layernorm.launches
+    x, wgt, gy = _ln_inputs(cuda_device, (2, 8, 8, 48), torch.bfloat16)
+    x.requires_grad_(True)
+    biasfree_layernorm(x, wgt).backward(gy)
+    assert biasfree_layernorm.launches == before + 2
+    for bad, what in ((x.detach()[:, :44], "44 channels"),
+                      (x.detach().to(torch.uint8), "torch.uint8 with 48 channels")):
+        w = wgt[:bad.shape[1]]
+        with pytest.raises(ValueError, match=what):
+            biasfree_layernorm(bad, w)
+        with pytest.raises(ValueError, match=what):
+            layernorm._backward(gy[:, :bad.shape[1]].to(x.dtype), bad, w)
+    assert biasfree_layernorm.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_pooled_restormer_calls_launch_the_layernorm_176_times_a_step(cuda_device, tmp_path):
+    """The benchmark's configuration (dim 48, bf16, batch 4) in the Engine's
+    pooled trainer at K = 10: the eager call, the capture's replay and a
+    replay each count 1,760 launches of the LayerNorm, 88 forward and 88
+    backward a step."""
+    recs = onp.random.default_rng(5).integers(0, 65535, (8, 64, 64, 4), dtype=onp.uint16)
+    pool = {"clean": torch.from_numpy(recs).to(cuda_device)}
+    eng = Engine(Config(device="cuda", netG="restormer", noise="eld", include=4, base_width=48,
+                        batch_size=4, bf16=True, is_train=True, no_log=True, no_verbose=True,
+                        checkpoints_dir=str(tmp_path), name="restormer"))
+    fn = eng._scan_fn(10)
+    counts = []
+    for call in range(3):
+        before = biasfree_layernorm.launches
+        fn(eng.state, pool, [fold_in(1, 10 * call + j) for j in range(10)])
+        counts.append(biasfree_layernorm.launches - before)
+    torch.cuda.synchronize(cuda_device)
+    assert counts == [1760] * 3 and graph_replays(fn) == 2
     assert onp.isfinite(fn.losses.cpu().numpy()).all()

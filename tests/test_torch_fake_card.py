@@ -6,7 +6,8 @@ graph that counts its replays and remembers its registered generators, a
 capture that runs the call's Python for real on the CPU, streams that do
 nothing, and K1's wrapper and the plain versions of the conv epilogue
 (``models/epilogue.py``) and of Restormer's attention (``models/mdta.py``)
-counting their CPU calls as launches.
+and LayerNorm (``models/layernorm.py``) counting their CPU calls as
+launches.
 With ``_RecordingGraph`` a replay does nothing; with ``_ReplayingGraph``
 it runs the captured call's Python again on the graph's buffers and
 draws and writes its outputs into the graph's own, as a replay on the
@@ -24,7 +25,7 @@ import numpy as onp
 import pytest
 import torch
 
-from eld_tpu_torch.models import build_arch, epilogue
+from eld_tpu_torch.models import build_arch, epilogue, layernorm
 from eld_tpu_torch.models import mdta as attention
 from eld_tpu_torch.models.epilogue import bias_lrelu
 from eld_tpu_torch.noise.params import load_camera_params
@@ -85,12 +86,14 @@ class _ReplayingGraph(_RecordingGraph):
         state, kernel = self.state, steps.synthesize_kernel
         step, launches = (state.step if state is not None else 0), kernel.launches
         epilogue, mdta = bias_lrelu.launches, attention.mdta.launches
+        norm = layernorm.biasfree_layernorm.launches
         for out, new in zip(self.call.out, self.call._run(state, self.inputs)):
             out.copy_(new)
         if state is not None:
             state.step = step
         kernel.launches, bias_lrelu.launches = launches, epilogue
         attention.mdta.launches = mdta
+        layernorm.biasfree_layernorm.launches = norm
 
 
 class _FakeStream:
@@ -133,6 +136,9 @@ def install_fake_card(setattr, graph=_RecordingGraph):
     setattr(epilogue, "plain_backward", counting(epilogue.plain_backward))
     setattr(attention, "plain_forward", counting(attention.plain_forward, attention.mdta))
     setattr(attention, "plain_backward", counting(attention.plain_backward, attention.mdta))
+    norm = layernorm.biasfree_layernorm
+    setattr(layernorm, "plain_forward", counting(layernorm.plain_forward, norm))
+    setattr(layernorm, "plain_backward", counting(layernorm.plain_backward, norm))
     setattr(steps._GraphCall, "_capture", capture_and_link)
     setattr(torch.cuda, "CUDAGraph", graph)
     setattr(torch.cuda, "graph", capture)
