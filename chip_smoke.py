@@ -318,7 +318,7 @@ def phase1():
     from eld_tpu_torch.noise import kernels
 
     t0 = time.perf_counter()
-    lib = kernels.load_library()
+    lib = kernels.LIBRARY.load()
     secs = time.perf_counter() - t0
     ctr = (ctypes.c_uint32 * 4)(0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344)
     key = (ctypes.c_uint32 * 2)(0xA4093822, 0x299F31D0)
@@ -465,7 +465,7 @@ def phase2(card):
     # (g) registers and spills, and times at the slice's shape, full model,
     # clip=True, on uniform input and on the smooth patches the trainers see
     with tempfile.TemporaryDirectory() as tmp:
-        _, report = _build_verbose(os.path.join(HERE, kernels.SOURCE_PATH), tmp)
+        _, report = _build_verbose(os.path.join(HERE, kernels.LIBRARY.source_paths[0]), tmp)
     for r in report:
         print(f"[2g] {r['kernel']}: {r['registers']} registers, spill stores "
               f"{r['spill_stores']} B, spill loads {r['spill_loads']} B (nvcc -Xptxas -v)",
@@ -476,7 +476,7 @@ def phase2(card):
     # earlier runs timed it; kernel_ms*: the kernel alone, host issue time
     # kept out of the interval
     smooth = to_f32(_smooth_u16(n, dev))  # as the trainers normalize it
-    lib = kernels.load_library()
+    lib = kernels.LIBRARY.load()
     t = {"ms": cuda_ms(lambda: synthesize_kernel(9, clean, params, "eld")),
          "ms_smooth": cuda_ms(lambda: synthesize_kernel(9, smooth, params, "eld")),
          "kernel_ms": cuda_ms(kernel_only(lib, 9, clean, params, "eld", True), spin=True),
@@ -1861,7 +1861,7 @@ def phase8k(card):
     err = float((out - noise_core(clean, params, "eld",
                                   kernel_draws(17, DEMO_SHAPE, "eld", "cuda"))).abs().max())
     check(err <= 1e-5, f"8k K1 vs noise_core at {DEMO_SHAPE}: max |err| {err}")
-    lib = kernels.load_library()
+    lib = kernels.LIBRARY.load()
     t = {"kernel_ms": cuda_ms(kernel_only(lib, 9, clean, params, "eld", True), spin=True),
          "plain_ms": cuda_ms(lambda: synthesize(gen, clean, params, "eld"))}
     bytes_ms, ops_ms = _noise_bytes_ms(DEMO_SHAPE), _noise_ops_ms(9, clean, params)
@@ -2003,8 +2003,9 @@ PEAK_SHAPE = (128, 512, 512, 4)  # the largest batch --modes peak gives K1
 
 
 def conv_flops(arch, n, h, w, width, cin=4, cout=4):
-    """The train step's FLOPs by hand (the one copy: phase 9 and
-    tests/test_torch_bench.py check roofline.step_cost against it): 3x the
+    """The train step's FLOPs by hand (phase 9 and tests/test_torch_bench.py
+    check roofline.step_cost against it; the benchmark keeps a frozen copy of
+    its own, ``benchmark/archs/unet.py::step_flops``): 3x the
     forward FLOPs of every conv and transposed conv (2 per multiply-add;
     the input gradient and the weight gradient cost as much as the
     forward), less the first conv's input gradient, which is never
@@ -2290,7 +2291,7 @@ def phase10a(card):
         del graph, static
         print(f"[10a] a CUDA graph of one device-seed launch, replayed after writing each "
               f"seed to its buffer, equals the host-seed launch of that seed", flush=True)
-        lib = kernels.load_library()
+        lib = kernels.LIBRARY.load()
         times = {"host": [], "device": []}
         for entry in ("host", "device", "device", "host"):
             seed = 9 if entry == "host" else seed_tensor(9, dev)
@@ -3650,8 +3651,7 @@ def main():
     p15 = phase15(card)
     p16 = phase16(card)
 
-    from eld_tpu_torch.models import epilogue
-    from eld_tpu_torch.noise.kernels import REPLACES, SOURCE_PATH
+    from eld_tpu_torch.noise.kernels import LIBRARY, REPLACES
 
     launches = (s["launches"] + pooled_launches + srgb_launches + p7["7a"]["launches"]
                 + p7["7b"]["launches"] + p8["launches"] + p9["launches"] + p10["launches"]
@@ -3662,10 +3662,9 @@ def main():
     steps = (s["steps"] + pooled_steps + srgb_steps + p7["7a"]["steps"]
              + p7["7b"]["rank_steps"] + p8["steps"] + p9["steps"] + p10["steps"]
              + p11["steps"] + p12["steps"] + p13["steps"])
-    epi_launches = epilogue4["launches"] + p10["epilogue"]["launches"]
-    epi_steps = epilogue4["steps"] + p10["epilogue"]["steps"]
     kernels = {"kernels": [{
-        "name": "noise_synth", "route": "cuda", "source": SOURCE_PATH, "replaces": REPLACES,
+        "name": "noise_synth", "route": "cuda", "source": LIBRARY.source_paths[0],
+        "replaces": REPLACES,
         "launches": launches, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
         "library_ms": None,  # no single PyTorch call computes this function
@@ -3676,14 +3675,8 @@ def main():
         "bound_ms_demo": p8["8k"]["bound_ms"], "launches_per_step": launches / steps,
         "max_abs_err_dev_seed": p10["10a"]["max_abs_err"],
         "kernel_ms_host_seed_10a": p10["10a"]["kernel_ms_host_seed"],
-        "kernel_ms_dev_seed": p10["10a"]["kernel_ms_dev_seed"]}, {
-        "name": "conv_epilogue", "route": "cuda", "source": epilogue.SOURCE_PATH,
-        "replaces": None,  # XLA fuses the epilogue on the TPU; no Pallas kernel
-        # the pooled main path's own calls (phases 4 and 10c), counted from 0
-        "launches": epi_launches, "launches_per_step": epi_launches / epi_steps,
-        "step_ms": p14["step"],
-        "registers": p14["registers"], "build_s": p14["build_s"]}, mdta_entry(p15),
-        layernorm_entry(p16)]}
+        "kernel_ms_dev_seed": p10["10a"]["kernel_ms_dev_seed"]},
+        epilogue_entry(epilogue4, p10, p14), mdta_entry(p15), layernorm_entry(p16)]}
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -3739,7 +3732,7 @@ def phase14(card):
     from eld_tpu_torch.models import epilogue
 
     t0 = time.perf_counter()
-    lib = epilogue.load_library()
+    lib = epilogue.LIBRARY.load()
     build_s = time.perf_counter() - t0
     out_dir = os.path.join(HERE, "build", "eld_tpu_torch", "ptxas")
     os.makedirs(out_dir, exist_ok=True)
@@ -3849,6 +3842,19 @@ def phase14(card):
     return {"build_s": build_s, "registers": regs, "rows": rows, "step": step}
 
 
+def epilogue_entry(epilogue4, p10, p14) -> dict:
+    """The conv epilogue's entry of the kernels' JSON line."""
+    from eld_tpu_torch.models.epilogue import LIBRARY
+
+    # the pooled main path's own calls (phases 4 and 10c), counted from 0
+    launches = epilogue4["launches"] + p10["epilogue"]["launches"]
+    steps = epilogue4["steps"] + p10["epilogue"]["steps"]
+    return {"name": "conv_epilogue", "route": "cuda", "source": LIBRARY.source_paths[0],
+            "replaces": None,  # XLA fuses the epilogue on the TPU; no Pallas kernel
+            "launches": launches, "launches_per_step": launches / steps,
+            "step_ms": p14["step"], "registers": p14["registers"], "build_s": p14["build_s"]}
+
+
 # ---- phase 15 -----------------------------------------------------------
 
 # Restormer's attention at the shapes of the cell syn-pool.restormer.p256b4
@@ -3903,7 +3909,7 @@ def phase15(card):
     from eld_tpu_torch.train.steps import fold_in, graph_replays
 
     t0 = time.perf_counter()
-    lib = attention.load_library()
+    lib = attention.LIBRARY.load()
     build_s = time.perf_counter() - t0
     out_dir = os.path.join(HERE, "build", "eld_tpu_torch", "ptxas")
     os.makedirs(out_dir, exist_ok=True)
@@ -4007,9 +4013,9 @@ def phase15(card):
 
 def mdta_entry(p15) -> dict:
     """The attention's entry of the kernels' JSON line."""
-    from eld_tpu_torch.models.mdta import SOURCES
+    from eld_tpu_torch.models.mdta import LIBRARY
 
-    return {"name": "mdta", "route": "cuda", "source": f"eld_tpu_torch/csrc/{SOURCES[0]}",
+    return {"name": "mdta", "route": "cuda", "source": LIBRARY.source_paths[0],
             "replaces": None,  # eld_tpu has no Restormer
             # the pooled main path's own calls, counted from 0
             "launches": p15["launches"], "launches_per_step": p15["launches"] / p15["steps"],
@@ -4069,7 +4075,7 @@ def phase16(card):
 
     ln = layernorm.biasfree_layernorm
     t0 = time.perf_counter()
-    lib = layernorm.load_library()
+    lib = layernorm.LIBRARY.load()
     build_s = time.perf_counter() - t0
     out_dir = os.path.join(HERE, "build", "eld_tpu_torch", "ptxas")
     os.makedirs(out_dir, exist_ok=True)
@@ -4176,9 +4182,9 @@ def phase16(card):
 
 def layernorm_entry(p16) -> dict:
     """The LayerNorm's entry of the kernels' JSON line."""
-    from eld_tpu_torch.models.layernorm import SOURCE_PATH
+    from eld_tpu_torch.models.layernorm import LIBRARY
 
-    return {"name": "biasfree_layernorm", "route": "cuda", "source": SOURCE_PATH,
+    return {"name": "biasfree_layernorm", "route": "cuda", "source": LIBRARY.source_paths[0],
             "replaces": None,  # eld_tpu has no Restormer
             # the pooled main path's own calls, counted from 0
             "launches": p16["launches"], "launches_per_step": p16["launches"] / p16["steps"],

@@ -1,4 +1,12 @@
-"""Build the package's CUDA sources with nvcc at first use, load with ctypes.
+"""Build the package's CUDA sources with nvcc at first use, load with ctypes,
+and count the launches of the port's hand-written kernels.
+
+A hand-written kernel is its ``csrc/*.cu`` source, with a plain C
+interface, and a wrapper module that declares one ``Library``: its name,
+its sources, the C signature of each entry point and the entry that names
+a CUDA error.  The wrapper's entry point of the port is registered with
+``counted``, so that a replayed CUDA graph adds the launches it holds
+(``train/steps.py::_GraphCall``) without naming the kernel.
 
 Each library is compiled from ``csrc/`` into ``build/eld_tpu_torch/`` at the
 repository root, under a name that carries a hash of its sources and
@@ -19,7 +27,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Dict, Sequence
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 from eld_tpu_torch._paths import BUILD_DIR, CSRC_DIR
 
@@ -99,3 +107,68 @@ def load(name: str, sources: Sequence[str]) -> ctypes.CDLL:
             thread.join()
         lib = _LOADED[name] = ctypes.CDLL(build(name, sources))
     return lib
+
+
+class Library:
+    """One CUDA library of the port: ``name`` and ``sources`` (file names
+    under csrc/) as ``build`` takes them, ``signatures`` the (restype,
+    argtypes) of each C entry point, and ``error_entry`` the entry that
+    turns a CUDA error code into its string (bound here as well)."""
+
+    def __init__(self, name: str, sources: Sequence[str],
+                 signatures: Mapping[str, Tuple[Optional[type], Sequence[type]]],
+                 error_entry: str):
+        self.name, self.sources = name, tuple(sources)
+        self.signatures = {**signatures, error_entry: (ctypes.c_char_p, [ctypes.c_int])}
+        self.error_entry = error_entry
+        self._lib: Optional[ctypes.CDLL] = None
+
+    @property
+    def source_paths(self) -> Tuple[str, ...]:
+        """The sources' paths from the repository's root."""
+        return tuple(f"eld_tpu_torch/csrc/{src}" for src in self.sources)
+
+    def start(self) -> None:
+        """Begin building the library on a thread of its own (``start``)."""
+        start(self.name, self.sources)
+
+    def load(self) -> ctypes.CDLL:
+        """Build (first use, after a started build) and bind the library,
+        once per process."""
+        if self._lib is None:
+            self._lib = self.bind(load(self.name, self.sources))
+        return self._lib
+
+    def bind(self, lib: ctypes.CDLL) -> ctypes.CDLL:
+        """Set the entry points' C signatures on ``lib``, a loaded build of
+        these sources or of another with the same C interface."""
+        for entry, (restype, argtypes) in self.signatures.items():
+            fn = getattr(lib, entry)
+            fn.restype, fn.argtypes = restype, list(argtypes)
+        return lib
+
+    def check(self, lib: ctypes.CDLL, rc: int, what: str) -> None:
+        """Raise a ``RuntimeError`` naming the CUDA error ``rc`` that an
+        entry point of ``lib``, a bound build, returned for ``what``;
+        nothing for 0."""
+        if rc != 0:
+            error = getattr(lib, self.error_entry)(rc).decode()
+            raise RuntimeError(f"{self.name} {what} launch failed: {error} ({rc})")
+
+
+# the kernel entry points of the port whose launches are counted
+COUNTED: List[Callable] = []
+
+
+def counted(entry: Callable) -> Callable:
+    """Register ``entry``, a kernel's entry point of the port: it counts the
+    launches it makes on a card in ``entry.launches``, from 0, and a replayed
+    CUDA graph adds the launches it holds."""
+    entry.launches = 0
+    COUNTED.append(entry)
+    return entry
+
+
+def launch_counts() -> Dict[Callable, int]:
+    """Each registered entry point's launches so far."""
+    return {entry: entry.launches for entry in COUNTED}

@@ -22,9 +22,7 @@ the call, and a served artifact runs the kernel on the card too.  Under
 ``no_grad`` or ``inference_mode`` nothing is saved.
 
 ``bias_lrelu.launches`` counts one per forward and one per backward run on
-the card (a replayed CUDA graph counts its own, ``train/steps.py``), and
-``bias_lrelu.bytes`` the bytes those runs must move, for the roofline tool,
-whose operator-level counter does not see a launch through ctypes.
+the card (a replayed CUDA graph adds its own, ``_build.counted``).
 """
 
 from __future__ import annotations
@@ -38,35 +36,15 @@ import torch.nn.functional as F
 from eld_tpu_torch import _build
 
 SLOPE = 0.2
-SOURCES = ("conv_epilogue.cu",)
-SOURCE_PATH = "eld_tpu_torch/csrc/conv_epilogue.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_BLOCKS = {}  # by card index
 
-
-def start_build() -> None:
-    """Begin building the kernels' library on a thread (``_build.start``)."""
-    _build.start("conv_epilogue", SOURCES)
-
-
-def load_library() -> ctypes.CDLL:
-    """Build (first use) and bind the kernels' shared library."""
-    lib = _build.load("conv_epilogue", SOURCES)
-    if not hasattr(lib, "_eld_bound"):
-        lib.eld_bias_lrelu_fwd.restype = ctypes.c_int
-        lib.eld_bias_lrelu_fwd.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.eld_lrelu_bias_bwd.restype = ctypes.c_int
-        lib.eld_lrelu_bias_bwd.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.eld_epilogue_blocks_per_sm.restype = ctypes.c_int
-        lib.eld_epilogue_blocks_per_sm.argtypes = []
-        lib.eld_epilogue_error_string.restype = ctypes.c_char_p
-        lib.eld_epilogue_error_string.argtypes = [ctypes.c_int]
-        lib._eld_bound = True
-    return lib
+_p, _i64, _i = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+LIBRARY = _build.Library("conv_epilogue", ("conv_epilogue.cu",), {
+    "eld_bias_lrelu_fwd": (_i, [_p, _p, _p, _p, _i64, _i, _i, _i, _p]),
+    "eld_lrelu_bias_bwd": (_i, [_p, _p, _p, _p, _p, _i64, _i, _i, _i, _p]),
+    "eld_epilogue_blocks_per_sm": (_i, []),
+}, "eld_epilogue_error_string")
 
 
 # ---- the plain version -------------------------------------------------------
@@ -96,12 +74,6 @@ def _max_blocks(lib: ctypes.CDLL, device: torch.device) -> int:
     return blocks
 
 
-def _raise_on(lib: ctypes.CDLL, rc: int, what: str):
-    if rc != 0:
-        raise RuntimeError(f"conv_epilogue {what} launch failed: "
-                           f"{lib.eld_epilogue_error_string(rc).decode()} ({rc})")
-
-
 def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -116,7 +88,7 @@ def launch_forward(lib: ctypes.CDLL, z: torch.Tensor, bias: torch.Tensor,
         rc = lib.eld_bias_lrelu_fwd(z.data_ptr(), None if z2 is None else z2.data_ptr(),
                                     b.data_ptr(), y.data_ptr(), n * h * w, c,
                                     _DTYPES[z.dtype], _max_blocks(lib, z.device), _stream(z))
-    _raise_on(lib, rc, "forward")
+    LIBRARY.check(lib, rc, "forward")
     return y
 
 
@@ -136,7 +108,7 @@ def launch_backward(lib: ctypes.CDLL, gy: torch.Tensor, y: torch.Tensor):
         rc = lib.eld_lrelu_bias_bwd(gy.data_ptr(), y.data_ptr(), gz.data_ptr(),
                                     partial.data_ptr(), gbias.data_ptr(), n * h * w, c,
                                     _DTYPES[y.dtype], blocks, _stream(y))
-    _raise_on(lib, rc, "backward")
+    LIBRARY.check(lib, rc, "backward")
     return gz, gbias
 
 
@@ -165,10 +137,6 @@ def _check_card(z: torch.Tensor, z2: Optional[torch.Tensor]):
                              f"{t.stride()} for shape {tuple(t.shape)}")
 
 
-def _nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts)
-
-
 # ---- the two operators ------------------------------------------------------------
 # Registered with the dispatcher so that ``torch.export`` records each call
 # as one node, and a served artifact runs the kernel where the tensors are
@@ -181,9 +149,8 @@ def _forward(z: torch.Tensor, bias: torch.Tensor, z2: Optional[torch.Tensor]) ->
     if z.device.type != "cuda":
         raise ValueError(f"no conv epilogue kernel for device {z.device}")
     _check_card(z, z2)
-    y = launch_forward(load_library(), z, bias, z2)
+    y = launch_forward(LIBRARY.load(), z, bias, z2)
     bias_lrelu.launches += 1
-    bias_lrelu.bytes += _nbytes(z, y, bias) + (0 if z2 is None else _nbytes(z2))
     return y
 
 
@@ -196,9 +163,8 @@ def _(z, bias, z2):
 def _backward(gy: torch.Tensor, y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if y.device.type == "cpu":
         return plain_backward(gy, y)
-    gz, gbias = launch_backward(load_library(), gy, y)
+    gz, gbias = launch_backward(LIBRARY.load(), gy, y)
     bias_lrelu.launches += 1
-    bias_lrelu.bytes += _nbytes(gy, y, gz, gbias)
     return gz, gbias
 
 
@@ -221,13 +187,10 @@ def _gradients(ctx, gy):
 _forward.register_autograd(_gradients, setup_context=_save_y)
 
 
+@_build.counted
 def bias_lrelu(z: torch.Tensor, bias: torch.Tensor,
                z2: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``leaky_relu(z [+ z2] + bias, 0.2)`` over (N, C, H, W) convolution
     outputs without their bias, one pass each way on the card."""
     _check(z, bias, z2)
     return _forward(z, bias, z2)
-
-
-bias_lrelu.launches = 0
-bias_lrelu.bytes = 0

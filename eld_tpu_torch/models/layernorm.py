@@ -30,9 +30,8 @@ operator of the dispatcher (``eld_tpu_torch::biasfree_layernorm`` and
 records the call and a served artifact runs the kernel on a card.
 
 ``biasfree_layernorm.launches`` counts one per forward and one per backward
-run on the card (a replayed CUDA graph counts its own, ``train/steps.py``),
-and ``biasfree_layernorm.bytes`` the bytes those runs must move, for the
-roofline tool.  The kernels are named ``bfln_fwd``, ``bfln_bwd`` and
+run on the card (a replayed CUDA graph adds its own, ``_build.counted``).
+The kernels are named ``bfln_fwd``, ``bfln_bwd`` and
 ``bfln_wsum``, so a trace reader finds them inside a replayed graph.
 """
 
@@ -46,33 +45,16 @@ import torch
 from eld_tpu_torch import _build
 
 EPS = 1e-5
-SOURCES = ("layernorm.cu",)
-SOURCE_PATH = "eld_tpu_torch/csrc/layernorm.cu"
 CHANNEL_MULTIPLE = 8  # the channels the kernels take: a multiple of this ...
 MAX_PIXEL_BYTES = 2048  # ... in a pixel of at most this (csrc/layernorm.cu's kMaxChunks)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-
-def start_build() -> None:
-    """Begin building the kernels' library on a thread (``_build.start``)."""
-    _build.start("layernorm", SOURCES)
-
-
-def load_library() -> ctypes.CDLL:
-    """Build (first use) and bind the kernels' shared library."""
-    lib = _build.load("layernorm", SOURCES)
-    if not hasattr(lib, "_eld_bound"):
-        p, i64, i = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.eld_bfln_blocks.restype = i
-        lib.eld_bfln_blocks.argtypes = [i64, i, i, i, ctypes.POINTER(i)]
-        lib.eld_bfln_fwd.restype = i
-        lib.eld_bfln_fwd.argtypes = [p, p, p, i64, i, i, i, p]
-        lib.eld_bfln_bwd.restype = i
-        lib.eld_bfln_bwd.argtypes = [p, p, p, p, p, p, i64, i, i, i, p]
-        lib.eld_bfln_error_string.restype = ctypes.c_char_p
-        lib.eld_bfln_error_string.argtypes = [i]
-        lib._eld_bound = True
-    return lib
+_p, _i64, _i = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+LIBRARY = _build.Library("layernorm", ("layernorm.cu",), {
+    "eld_bfln_blocks": (_i, [_i64, _i, _i, _i, ctypes.POINTER(_i)]),
+    "eld_bfln_fwd": (_i, [_p, _p, _p, _i64, _i, _i, _i, _p]),
+    "eld_bfln_bwd": (_i, [_p, _p, _p, _p, _p, _p, _i64, _i, _i, _i, _p]),
+}, "eld_bfln_error_string")
 
 
 # ---- the plain version -------------------------------------------------------
@@ -114,12 +96,6 @@ def on_card(x: torch.Tensor) -> bool:
     return True
 
 
-def _raise_on(lib: ctypes.CDLL, rc: int, what: str):
-    if rc != 0:
-        raise RuntimeError(f"biasfree_layernorm {what} launch failed: "
-                           f"{lib.eld_bfln_error_string(rc).decode()} ({rc})")
-
-
 def _dense(name: str, t: torch.Tensor) -> torch.Tensor:
     """``t`` as dense NHWC (no copy where it is), on a 16-byte boundary."""
     t = t.contiguous(memory_format=torch.channels_last)
@@ -131,8 +107,8 @@ def _dense(name: str, t: torch.Tensor) -> torch.Tensor:
 
 def _blocks(lib: ctypes.CDLL, pixels: int, c: int, dtype: int, backward: bool) -> int:
     blocks = ctypes.c_int(0)
-    _raise_on(lib, lib.eld_bfln_blocks(pixels, c, dtype, int(backward), ctypes.byref(blocks)),
-              "grid")
+    rc = lib.eld_bfln_blocks(pixels, c, dtype, int(backward), ctypes.byref(blocks))
+    LIBRARY.check(lib, rc, "grid")
     return blocks.value
 
 
@@ -147,7 +123,7 @@ def launch_forward(lib: ctypes.CDLL, x: torch.Tensor, weight: torch.Tensor) -> t
         blocks = _blocks(lib, n * h * w, c, dtype, False)
         rc = lib.eld_bfln_fwd(x.data_ptr(), wf.data_ptr(), y.data_ptr(), n * h * w, c, dtype,
                               blocks, torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(lib, rc, "forward")
+    LIBRARY.check(lib, rc, "forward")
     return y
 
 
@@ -169,7 +145,7 @@ def launch_backward(lib: ctypes.CDLL, gy: torch.Tensor, x: torch.Tensor,
         rc = lib.eld_bfln_bwd(x.data_ptr(), gy.data_ptr(), wf.data_ptr(), gx.data_ptr(),
                               partial.data_ptr(), gw.data_ptr(), n * h * w, c, dtype, blocks,
                               torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(lib, rc, "backward")
+    LIBRARY.check(lib, rc, "backward")
     return gx, gw
 
 
@@ -183,10 +159,6 @@ def _check(x: torch.Tensor, weight: torch.Tensor):
         raise ValueError(f"weight is on {weight.device}, x on {x.device}")
 
 
-def _nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts)
-
-
 # ---- the two operators ------------------------------------------------------------
 
 @torch.library.custom_op("eld_tpu_torch::biasfree_layernorm", mutates_args=())
@@ -194,9 +166,8 @@ def _forward(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     if not on_card(x):
         with torch.autocast(x.device.type, enabled=False):  # f32 inside, also under autocast
             return plain_forward(x, weight)
-    y = launch_forward(load_library(), x, weight)
+    y = launch_forward(LIBRARY.load(), x, weight)
     biasfree_layernorm.launches += 1
-    biasfree_layernorm.bytes += _nbytes(x, y, weight)
     return y
 
 
@@ -211,9 +182,8 @@ def _backward(gy: torch.Tensor, x: torch.Tensor,
     if not on_card(x):
         with torch.autocast(x.device.type, enabled=False):
             return plain_backward(gy, x, weight)
-    gx, gw = launch_backward(load_library(), gy, x, weight)
+    gx, gw = launch_backward(LIBRARY.load(), gy, x, weight)
     biasfree_layernorm.launches += 1
-    biasfree_layernorm.bytes += _nbytes(x, gy, gx, weight, gw)
     return gx, gw
 
 
@@ -235,13 +205,10 @@ def _gradients(ctx, gy):
 _forward.register_autograd(_gradients, setup_context=_save_x)
 
 
+@_build.counted
 def biasfree_layernorm(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """The BiasFree LayerNorm over the channels of (N, C, H, W) ``x`` with the
     (C,) ``weight``: (N, C, H, W) in ``x``'s dtype, one pass each way on the
     card."""
     _check(x, weight)
     return _forward(x, weight)
-
-
-biasfree_layernorm.launches = 0
-biasfree_layernorm.bytes = 0

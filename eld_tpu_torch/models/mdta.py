@@ -32,7 +32,7 @@ Each way is one operator of the dispatcher (``eld_tpu_torch::mdta`` and
 ``eld_tpu_torch::mdta_backward``), so ``torch.export`` records the call.
 
 ``mdta.launches`` counts one per forward and one per backward run on the
-card (a replayed CUDA graph counts its own, ``train/steps.py``); the
+card (a replayed CUDA graph adds its own, ``_build.counted``); the
 kernels are named ``mdta_*``, so a trace reader finds them inside a
 replayed graph.
 """
@@ -48,32 +48,16 @@ from eld_tpu_torch import _build
 from eld_tpu_torch.utils.logging import span
 
 EPS = 1e-12
-SOURCES = ("mdta.cu",)
 HEAD_SIZES = (48, 96)  # the head sizes the kernels are built for
 TILE = 32  # pixels a tile of the kernels' passes
 _BLOCKS_PER_SM = 2  # blocks of a chunked pass per SM, over all heads and images
 _SMS = {}  # by card index
 
-
-def start_build() -> None:
-    """Begin building the kernels' library on a thread (``_build.start``)."""
-    _build.start("mdta", SOURCES)
-
-
-def load_library() -> ctypes.CDLL:
-    """Build (first use) and bind the kernels' shared library."""
-    lib = _build.load("mdta", SOURCES)
-    if not hasattr(lib, "_eld_bound"):
-        p, i64, i = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.eld_mdta_fwd.restype = i
-        lib.eld_mdta_fwd.argtypes = [p, p, p, p, p, p, p, p, i64, i64, i, i, i, i64, i, p]
-        lib.eld_mdta_bwd.restype = i
-        lib.eld_mdta_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p,
-                                     i64, i64, i, i, i, i64, i, p]
-        lib.eld_mdta_error_string.restype = ctypes.c_char_p
-        lib.eld_mdta_error_string.argtypes = [i]
-        lib._eld_bound = True
-    return lib
+_p, _i64, _i = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+LIBRARY = _build.Library("mdta", ("mdta.cu",), {
+    "eld_mdta_fwd": (_i, [_p] * 8 + [_i64, _i64, _i, _i, _i, _i64, _i, _p]),
+    "eld_mdta_bwd": (_i, [_p] * 12 + [_i64, _i64, _i, _i, _i, _i64, _i, _p]),
+}, "eld_mdta_error_string")
 
 
 # ---- the plain version -------------------------------------------------------
@@ -183,12 +167,6 @@ def _sms(device: torch.device) -> int:
     return sms
 
 
-def _raise_on(lib: ctypes.CDLL, rc: int, what: str):
-    if rc != 0:
-        raise RuntimeError(f"mdta {what} launch failed: "
-                           f"{lib.eld_mdta_error_string(rc).decode()} ({rc})")
-
-
 def _check_card(*named):
     for name, t in named:
         if not t.is_contiguous() or t.data_ptr() % 16:
@@ -221,7 +199,7 @@ def launch_forward(lib: ctypes.CDLL, qkv: torch.Tensor, temperature: torch.Tenso
                               gram.data_ptr(), norms.data_ptr(), gram_part.data_ptr(),
                               norm_part.data_ptr(), n, p, heads, dim, chunks, chunk_len,
                               tile_blocks, torch.cuda.current_stream(qkv.device).cuda_stream)
-    _raise_on(lib, rc, "forward")
+    LIBRARY.check(lib, rc, "forward")
     return out, attn, gram, norms
 
 
@@ -253,7 +231,7 @@ def launch_backward(lib: ctypes.CDLL, dout: torch.Tensor, qkv: torch.Tensor,
                               prod.data_ptr(), alpha.data_ptr(), dt_rows.data_ptr(), n, p,
                               heads, dim, chunks, chunk_len, tile_blocks,
                               torch.cuda.current_stream(qkv.device).cuda_stream)
-    _raise_on(lib, rc, "backward")
+    LIBRARY.check(lib, rc, "backward")
     return dqkv, dt_rows.sum((0, 2)).reshape(temperature.shape)
 
 
@@ -274,7 +252,7 @@ def _forward(qkv: torch.Tensor, temperature: torch.Tensor,
     if not on_card(qkv, heads):
         with torch.autocast(qkv.device.type, enabled=False):  # f32 inside, also under autocast
             return plain_forward(qkv, temperature, heads)
-    outs = launch_forward(load_library(), qkv, temperature, heads)
+    outs = launch_forward(LIBRARY.load(), qkv, temperature, heads)
     mdta.launches += 1
     return outs
 
@@ -296,7 +274,7 @@ def _backward(dout: torch.Tensor, qkv: torch.Tensor, temperature: torch.Tensor, 
     if not on_card(qkv, heads):
         with torch.autocast(qkv.device.type, enabled=False):
             return plain_backward(dout, qkv, temperature, heads, attn, gram, norms)
-    grads = launch_backward(load_library(), dout, qkv, temperature, heads, attn, gram, norms)
+    grads = launch_backward(LIBRARY.load(), dout, qkv, temperature, heads, attn, gram, norms)
     mdta.launches += 1
     return grads
 
@@ -323,6 +301,7 @@ def _gradients(ctx, dout, *_aux):
 _forward.register_autograd(_gradients, setup_context=_save)
 
 
+@_build.counted
 def mdta(qkv: torch.Tensor, temperature: torch.Tensor, heads: int) -> torch.Tensor:
     """Transposed attention over (N, H, W, 3·dim) NHWC ``qkv`` with
     ``heads`` heads and the (heads, 1, 1) ``temperature``: (N, H, W, dim),
@@ -330,6 +309,3 @@ def mdta(qkv: torch.Tensor, temperature: torch.Tensor, heads: int) -> torch.Tens
     _check(qkv, temperature, heads)
     with span("eld.mdta"):
         return _forward(qkv, temperature, heads)[0]
-
-
-mdta.launches = 0

@@ -41,8 +41,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from eld_tpu_torch.models.layernorm import biasfree_layernorm, start_build as _start_ln_build
-from eld_tpu_torch.models.mdta import mdta, start_build as _start_mdta_build
+from eld_tpu_torch.models.layernorm import LIBRARY as _LAYERNORM, biasfree_layernorm
+from eld_tpu_torch.models.mdta import LIBRARY as _MDTA, mdta
 
 NUM_BLOCKS = (4, 6, 6, 8)
 REFINEMENT_BLOCKS = 4
@@ -153,7 +153,7 @@ class Upsample(nn.Module):
 
 
 class Restormer(nn.Module):
-    KERNEL_BUILDS = (_start_mdta_build, _start_ln_build)  # the libraries its card path launches
+    KERNEL_LIBRARIES = (_MDTA, _LAYERNORM)  # the libraries its card path launches
 
     def __init__(self, in_channels: int = 4, out_channels: int = 4, dim: int = 48,
                  num_blocks: Sequence[int] = NUM_BLOCKS,

@@ -38,7 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from eld_tpu_torch.models.epilogue import bias_lrelu, start_build as _start_epilogue_build
+from eld_tpu_torch.models.epilogue import LIBRARY as _EPILOGUE, bias_lrelu
 
 
 def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
@@ -92,7 +92,7 @@ def _d2s_upsample(x, up: nn.ConvTranspose2d):
 
 
 class UNetSeeInDark(nn.Module):
-    KERNEL_BUILDS = (_start_epilogue_build,)  # the libraries its card path launches
+    KERNEL_LIBRARIES = (_EPILOGUE,)  # the libraries its card path launches
 
     def __init__(self, in_channels: int = 4, out_channels: int = 4, base_width: int = 32,
                  remat: bool = False, skip_mode: str = "concat", upsample: str = "convt",

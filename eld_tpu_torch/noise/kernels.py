@@ -30,13 +30,20 @@ from eld_tpu_torch import _build
 from eld_tpu_torch.noise.model import expand_model, synthesize
 from eld_tpu_torch.noise.params import NoiseParams
 
-SOURCES = ("noise_synth.cu",)
-SOURCE_PATH = "eld_tpu_torch/csrc/noise_synth.cu"
 REPLACES = "eld_tpu/noise/kernels.py:182"
 _COMPONENT_FLAGS = {"P": 1, "p": 2, "g": 4, "G": 8, "r": 16, "q": 32, "c": 64}
 PARAM_STRIDE = 12
 _MASK32 = 0xFFFFFFFF
 _MASK64 = (1 << 64) - 1
+
+_p, _i64, _i = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_ARGS = [_p, _p, _p, _i64, _i64, _i64, _i64, _i, _i]
+LIBRARY = _build.Library("noise_synth", ("noise_synth.cu",), {
+    "eld_noise_synth": (_i, _ARGS + [ctypes.c_uint64, _p]),
+    # the same with the seed as a device pointer (one uint64 in device memory)
+    "eld_noise_synth_dev": (_i, _ARGS + [_p, _p]),
+    "eld_philox4x32_10": (None, [_p] * 3),
+}, "eld_cuda_error_string")
 
 
 def model_flags(model: str) -> int:
@@ -47,40 +54,6 @@ def model_flags(model: str) -> int:
             raise ValueError(f"unknown noise component {ch!r} in model {model!r}")
         flags |= _COMPONENT_FLAGS[ch]
     return flags
-
-
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Set the C entry points' argument types on a loaded build of the
-    kernel's source (this one, or another with the same C interface)."""
-    lib.eld_noise_synth.restype = ctypes.c_int
-    lib.eld_noise_synth.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-        ctypes.c_int, ctypes.c_int, ctypes.c_uint64, ctypes.c_void_p,
-    ]
-    # the same with the seed as a device pointer (one uint64 in device memory)
-    lib.eld_noise_synth_dev.restype = ctypes.c_int
-    lib.eld_noise_synth_dev.argtypes = lib.eld_noise_synth.argtypes[:9] + [
-        ctypes.c_void_p, ctypes.c_void_p]
-    lib.eld_philox4x32_10.restype = None
-    lib.eld_philox4x32_10.argtypes = [ctypes.c_void_p] * 3
-    lib.eld_cuda_error_string.restype = ctypes.c_char_p
-    lib.eld_cuda_error_string.argtypes = [ctypes.c_int]
-    return lib
-
-
-def start_build() -> None:
-    """Begin building the kernel's library on a thread (``_build.start``)."""
-    _build.start("noise_synth", SOURCES)
-
-
-def load_library() -> ctypes.CDLL:
-    """Build (first use) and bind the kernel's shared library."""
-    lib = _build.load("noise_synth", SOURCES)
-    if not hasattr(lib, "_eld_bound"):
-        bind(lib)
-        lib._eld_bound = True
-    return lib
 
 
 def pack_params(params: NoiseParams, n: int) -> torch.Tensor:
@@ -154,12 +127,11 @@ def launch(lib: ctypes.CDLL, seed, clean: torch.Tensor, params: NoiseParams,
             rc = lib.eld_noise_synth_dev(*args, seed.data_ptr(), stream)
         else:
             rc = lib.eld_noise_synth(*args, int(seed) & _MASK64, stream)
-    if rc != 0:
-        raise RuntimeError(f"noise_synth kernel launch failed: "
-                           f"{lib.eld_cuda_error_string(rc).decode()} ({rc})")
+    LIBRARY.check(lib, rc, "kernel")
     return out
 
 
+@_build.counted
 def synthesize_kernel(seed, clean: torch.Tensor, params: NoiseParams,
                       model: str = "PGrqc", clip: bool = True) -> torch.Tensor:
     """Fused noise synthesis: clean (N, H, W, C) f32 + params (N,) -> noisy.
@@ -177,12 +149,9 @@ def synthesize_kernel(seed, clean: torch.Tensor, params: NoiseParams,
         return synthesize(gen, clean, params, model=model, clip=clip)
     if clean.device.type != "cuda":
         raise ValueError(f"no noise kernel for device {clean.device}")
-    out = launch(load_library(), seed, clean, params, model, clip)
+    out = launch(LIBRARY.load(), seed, clean, params, model, clip)
     synthesize_kernel.launches += 1
     return out
-
-
-synthesize_kernel.launches = 0
 
 
 # ---- the kernel's random draws, recomputed in PyTorch -------------------

@@ -60,7 +60,7 @@ import numpy as onp
 import torch
 
 from eld_tpu_torch.config import torch_device
-from eld_tpu_torch.noise.kernels import load_library, synthesize_kernel
+from eld_tpu_torch.noise.kernels import LIBRARY as K1_LIBRARY, synthesize_kernel
 from eld_tpu_torch.tools import roofline
 from eld_tpu_torch.train.steps import graph_replays, make_eval_forward
 
@@ -250,7 +250,7 @@ def run_combo(combo, device: str = "cuda") -> dict:
         roofline.sync(dev)
     t = _lap(secs, "cuda", t)
     if dev.type == "cuda" and mode in ("train", "peak"):
-        load_library()
+        K1_LIBRARY.load()
     _lap(secs, "k1_lib", t)
     if mode == "train":
         arch, skip_mode, upsample = combo[1:4]

@@ -41,8 +41,6 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from eld_tpu_torch.config import torch_device
 from eld_tpu_torch.models import build_arch
-from eld_tpu_torch.models.epilogue import bias_lrelu
-from eld_tpu_torch.models.layernorm import biasfree_layernorm
 from eld_tpu_torch.noise.kernels import PARAM_STRIDE, synthesize_kernel
 from eld_tpu_torch.noise.params import load_camera_params
 from eld_tpu_torch.train.state import create_train_state
@@ -88,10 +86,6 @@ def k1_bytes(shape) -> int:
     return 2 * n * h * w * c * 4 + n * PARAM_STRIDE * 4
 
 
-def _kernel_bytes() -> int:
-    return bias_lrelu.bytes + biasfree_layernorm.bytes
-
-
 def step_cost(step, state, batch, seed: int = 0) -> dict:
     """FLOPs and bytes of one step, counted while ``step(state, batch,
     seed)`` runs once (it updates ``state`` like any step).
@@ -100,21 +94,22 @@ def step_cost(step, state, batch, seed: int = 0) -> dict:
     backward (no input gradient for the first conv, whose input needs
     none), and any matmul; elementwise ops, pooling, the loss and Adam
     count none.  Bytes are ``ByteCounter``'s op-level traffic, which is
-    more than a fused program moves.  K1 and, on a card, the conv
-    epilogue's and the LayerNorm's kernels are launched through ctypes, so
-    neither counter sees them: each K1 launch during the step adds
-    ``k1_bytes`` of the batch, reported alone as ``k1_bytes_per_step``, and
-    the epilogue's and the LayerNorm's launches add the bytes they move
-    (``bias_lrelu.bytes``, ``biasfree_layernorm.bytes``).
-    ``k1_launches`` is the launches in the counted step; 0 means the
-    noise took the plain path, whose ops both counters see."""
-    before, kernel_bytes = synthesize_kernel.launches, _kernel_bytes()
+    more than a fused program moves.  The hand-written kernels of the
+    models (the conv epilogue, MDTA, the LayerNorm) are operators of the
+    dispatcher, which ``ByteCounter`` counts once each, by their inputs and
+    outputs, on the card as on the CPU.  K1 is launched through ctypes
+    outside any operator, so no counter sees it: each K1 launch during the
+    step adds ``k1_bytes`` of the batch, reported alone as
+    ``k1_bytes_per_step``.  ``k1_launches`` is the launches in the counted
+    step; 0 means the noise took the plain path, whose ops both counters
+    see."""
+    before = synthesize_kernel.launches
     with FlopCounterMode(display=False) as flops, ByteCounter() as nbytes:
         step(state, batch, seed)
     launches = synthesize_kernel.launches - before
     k1 = launches * k1_bytes(batch["clean"].shape)
     return {"flops_per_step": float(flops.get_total_flops()),
-            "bytes_per_step": float(nbytes.bytes + k1 + _kernel_bytes() - kernel_bytes),
+            "bytes_per_step": float(nbytes.bytes + k1),
             "k1_bytes_per_step": float(k1), "k1_launches": launches}
 
 

@@ -129,11 +129,11 @@ class Engine:
             # nvcc builds the kernels this run launches, each on a thread of
             # its own, while the card and the trainers are set up; the first
             # launch waits for its build
-            builds = getattr(model, "KERNEL_BUILDS", ())
+            libraries = getattr(model, "KERNEL_LIBRARIES", ())
             if cfg.is_train and synthetic:
-                builds += (noise_kernels.start_build,)
-            for start_build in builds:
-                start_build()
+                libraries += (noise_kernels.LIBRARY,)
+            for library in libraries:
+                library.start()
         model = model.to(self.device)
         if self.device.type == "cuda":
             model = model.to(memory_format=torch.channels_last)

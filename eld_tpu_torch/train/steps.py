@@ -56,10 +56,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from eld_tpu_torch.models.epilogue import bias_lrelu
-from eld_tpu_torch.models.layernorm import biasfree_layernorm
+from eld_tpu_torch import _build
 from eld_tpu_torch.models.losses import init_loss
-from eld_tpu_torch.models.mdta import mdta
 from eld_tpu_torch.noise.kernels import seed_int64, synthesize_kernel
 from eld_tpu_torch.noise.model import synthesize
 from eld_tpu_torch.noise.params import CameraParamsBank, sample_params_batch, take_rows
@@ -451,11 +449,10 @@ class _GraphCall:
     The first call for a binding runs eagerly on a side stream, a real
     call with its own seeds; the next captures (executing nothing) and
     replays, and every later call replays.  A replay runs no Python, so
-    the call advances ``state.step`` by ``steps``, and
-    ``synthesize_kernel.launches``, ``bias_lrelu.launches`` (the conv
-    epilogue's, ``models/epilogue.py``), ``mdta.launches`` (Restormer's
-    attention, ``models/mdta.py``) and ``biasfree_layernorm.launches`` (its
-    LayerNorm, ``models/layernorm.py``) by the launches the graph holds.  A call
+    the call advances ``state.step`` by ``steps`` and each counted kernel
+    entry point's ``.launches`` (``_build.counted``) by the launches the
+    graph holds, ``launches``: what the capture counted over the call's
+    Python, after which it restores the counts.  A call
     returns copies of the graph's outputs, which the next replay
     overwrites.  ``pool``: a memory pool shared with other graphs that
     replay one at a time on one stream (None: the graph's own).  A capture
@@ -489,10 +486,7 @@ class _GraphCall:
         self.binding: Optional[List[torch.Tensor]] = None
         self.inputs: Dict[str, torch.Tensor] = {}  # the static input buffers
         self.out: Tuple[torch.Tensor, ...] = ()  # the graph's outputs
-        self.launches = 0  # K1's
-        self.epilogue_launches = 0
-        self.mdta_launches = 0
-        self.layernorm_launches = 0
+        self.launches: Dict = {}  # {counted entry point: its launches in the graph}
         self.replays = 0
 
     def reset(self):
@@ -570,10 +564,8 @@ class _GraphCall:
         self.replays += 1
         if state is not None:
             state.step += self.steps
-        synthesize_kernel.launches += self.launches
-        bias_lrelu.launches += self.epilogue_launches
-        mdta.launches += self.mdta_launches
-        biasfree_layernorm.launches += self.layernorm_launches
+        for entry, n in self.launches.items():
+            entry.launches += n
         with span("eld.graph.outputs"):
             return tuple(t.clone() for t in self.out)
 
@@ -604,21 +596,17 @@ class _GraphCall:
             for gen in self.noise:
                 graph.register_generator_state(gen)
             step = state.step if state is not None else 0
-            launches, epilogue = synthesize_kernel.launches, bias_lrelu.launches
-            attention, norm = mdta.launches, biasfree_layernorm.launches
+            before = _build.launch_counts()
             try:
                 with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
                     out = self._run(state, inputs)
-                self.launches = synthesize_kernel.launches - launches
-                self.epilogue_launches = bias_lrelu.launches - epilogue
-                self.mdta_launches = mdta.launches - attention
-                self.layernorm_launches = biasfree_layernorm.launches - norm
+                self.launches = {entry: entry.launches - n for entry, n in before.items()}
             finally:
                 # the capture ran the call's Python, not its device work
                 if state is not None:
                     state.step = step
-                synthesize_kernel.launches, bias_lrelu.launches = launches, epilogue
-                mdta.launches, biasfree_layernorm.launches = attention, norm
+                for entry, n in before.items():
+                    entry.launches = n
             self.graph, self.out = graph, out
 
 

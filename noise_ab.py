@@ -107,11 +107,11 @@ def main():
     libs, build = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for who, src in (("other", os.path.abspath(sys.argv[1])),
-                         ("this", os.path.join(HERE, kernels.SOURCE_PATH))):
+                         ("this", os.path.join(HERE, kernels.LIBRARY.source_paths[0]))):
             os.makedirs(os.path.join(tmp, who))
             path, regs = _build_verbose(src, os.path.join(tmp, who))
             sass = sass_counts(path, os.path.join(BUILD_DIR, f"noise_synth_sass_{who}.txt"))
-            libs[who] = kernels.bind(ctypes.CDLL(path))
+            libs[who] = kernels.LIBRARY.bind(ctypes.CDLL(path))
             build[who] = {"ptxas": regs, "sass_instructions": sass}
             print(f"[ab] {who} ({src}): {regs}; static SASS instructions {sass}", flush=True)
 

@@ -12,7 +12,8 @@
 * ``step_cost``'s FLOPs equal an analytic count of the U-Net's
   convolutions exactly, and lie within 15% of XLA's ``cost_analysis()``
   of eld_tpu's step; its bytes equal a hand count on a conv + add, lie
-  within 1x-3x of XLA's "bytes accessed", and hold K1's bytes per launch;
+  within 1x-3x of XLA's "bytes accessed", hold K1's bytes per launch and
+  count each kernel operator's inputs and outputs once;
 * ``roofline`` returns eld_tpu's record keys.
 """
 
@@ -36,9 +37,9 @@ from eld_tpu.tools import bench_variants as jax_bench_variants
 from eld_tpu.train import create_train_state as jax_create_train_state
 from eld_tpu.train import make_train_step as jax_make_train_step
 from eld_tpu_torch.models import build_arch
-from eld_tpu_torch.models.epilogue import bias_lrelu
 from eld_tpu_torch.noise.kernels import synthesize_kernel
 from eld_tpu_torch.tools import bench_variants, roofline
+from tests.kernel_helpers import kernel_operator_step
 
 # eld_tpu's record keys per child mode (eld_tpu/tools/bench_variants.py:
 # train :71-89 and :320-321, eval :300-302 and :345, peak :256-259 and :329;
@@ -71,8 +72,8 @@ def one_torch_thread():
 
 
 def _chip_smoke():
-    """chip_smoke.py, loaded by path: it holds the one copy of the conv
-    count, ``conv_flops``, which its phase 9 checks on the card."""
+    """chip_smoke.py, loaded by path: its conv count, ``conv_flops``, is
+    what its phase 9 checks on the card."""
     path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                         "chip_smoke.py")
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
@@ -335,18 +336,14 @@ def test_step_cost_adds_k1_bytes_per_launch(monkeypatch):
         + 2 * 12 * 4
 
 
-def test_step_cost_adds_the_conv_epilogues_kernel_bytes(monkeypatch):
-    """A step whose conv epilogue runs its kernels (their wrapper adds the
-    bytes each launch moves) gets those bytes added: the operator-level
-    counter does not see a launch through ctypes."""
-    monkeypatch.setattr(bias_lrelu, "bytes", 0)
-
-    def step(state, batch, seed):
-        bias_lrelu.bytes += 1000
-        return {}
-
+def test_step_cost_counts_each_kernel_operator_once():
+    """The conv epilogue and the LayerNorm are operators of the dispatcher:
+    a step through both, forward and backward, costs their inputs' and
+    outputs' bytes, each operator counted once (its twin on the card is
+    ``test_torch_cuda.py``'s)."""
+    step, want = kernel_operator_step(torch.device("cpu"))
     cost = roofline.step_cost(step, None, {"clean": torch.zeros((2, 8, 8, 4))})
-    assert cost["bytes_per_step"] == 1000 and cost["k1_launches"] == 0
+    assert cost["bytes_per_step"] == want and cost["k1_launches"] == 0
 
 
 # ---- roofline's record --------------------------------------------------------
@@ -394,6 +391,29 @@ def test_chip_smokes_attention_shapes_are_a_restormer_steps():
     assert smoke._mdta_kernel_name(
         "_ZN39_GLOBAL__N__1d150f53_7_mdta_cu_116edd8510mdta_dq_dkILi96EEEvPK13__nv_bfloat16"
         "PKfS5_S5_S5_PS1_lii") == "mdta_dq_dk<96>"
+
+
+_PHASE = {"launches": 72, "steps": 2, "step": {"kernel_ms": 1.0}, "registers": {},
+          "build_s": 6.0, "max_rel": 1e-3, "max_err": 0.5, "pooled_step_ms": 9.0}
+_KERNEL_ENTRIES = {
+    "conv_epilogue": lambda smoke: smoke.epilogue_entry(
+        {"launches": 36, "steps": 1}, {"epilogue": {"launches": 36, "steps": 1}}, _PHASE),
+    "mdta": lambda smoke: smoke.mdta_entry(_PHASE),
+    "biasfree_layernorm": lambda smoke: smoke.layernorm_entry(_PHASE),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_KERNEL_ENTRIES))
+def test_chip_smokes_kernel_entries_name_their_sources(name):
+    """Each kernel's entry of chip_smoke.py's closing JSON line is built from
+    its phases' results and names the kernel's source, a file of the repo."""
+    entry = _KERNEL_ENTRIES[name](_chip_smoke())
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert entry["name"] == name and entry["route"] == "cuda"
+    assert entry["source"].startswith("eld_tpu_torch/csrc/")
+    assert os.path.isfile(os.path.join(root, entry["source"]))
+    assert entry["launches"] == 72 and entry["launches_per_step"] == 36
+    json.dumps(entry)
 
 
 def test_chip_smokes_layernorm_shapes_are_a_restormer_steps():

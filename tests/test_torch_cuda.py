@@ -48,6 +48,7 @@ from eld_tpu_torch.train.steps import (
     make_train_step,
     pick_batch,
 )
+from tests.kernel_helpers import kernel_operator_step
 
 
 @pytest.fixture
@@ -329,6 +330,19 @@ def test_roofline_on_the_card_counts_the_cpus_flops(cuda_device):
     assert 0 < card["mfu_pct"] <= 100
     assert card["noise_impl"] == "kernel" and cpu["noise_impl"] == "plain"
     assert card["k1_bytes_per_step"] == 2 * 2 * 64 * 64 * 4 * 4 + 2 * 12 * 4
+
+
+@pytest.mark.cuda
+def test_step_cost_counts_each_kernel_operator_once_on_the_card(cuda_device):
+    """On the card the operators launch the kernels, and ``step_cost`` counts
+    each one's inputs and outputs once, as on the CPU."""
+    from eld_tpu_torch.tools import roofline
+
+    step, want = kernel_operator_step(cuda_device)
+    before = bias_lrelu.launches, biasfree_layernorm.launches
+    cost = roofline.step_cost(step, None, {"clean": torch.zeros((2, 8, 8, 4))})
+    assert (bias_lrelu.launches - before[0], biasfree_layernorm.launches - before[1]) == (2, 2)
+    assert cost["bytes_per_step"] == want and cost["k1_launches"] == 0
 
 
 @pytest.mark.cuda
@@ -663,7 +677,7 @@ def test_conv_epilogue_kernels_equal_the_plain_version(cuda_device, shape, split
     the two sum 2M values a channel in different orders, and a blocked f32
     sum's rounding stays far below that."""
     z, z2, b, gy = _epilogue_inputs(cuda_device, shape, dtype, split)
-    lib = epilogue.load_library()
+    lib = epilogue.LIBRARY.load()
     y = epilogue.launch_forward(lib, z, b, z2)
     gz, gbias = epilogue.launch_backward(lib, gy, y)
     y_ref = epilogue.plain_forward(z, b, z2)
@@ -685,7 +699,7 @@ def test_conv_epilogue_backward_is_bit_identical_run_to_run(cuda_device, dtype):
     bits, gz and the bias sum alike."""
     for shape in [(8, 32, 512, 512), (8, 512, 32, 32), (3, 12, 7, 9)]:
         y, _, _, gy = _epilogue_inputs(cuda_device, shape, dtype, False)
-        lib = epilogue.load_library()
+        lib = epilogue.LIBRARY.load()
         first = epilogue.launch_backward(lib, gy, y)
         second = epilogue.launch_backward(lib, gy, y)
         assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1]), shape
@@ -769,7 +783,7 @@ def test_mdta_kernels_equal_the_composition(cuda_device, shape):
     n, h, w, heads, c = shape
     dim = heads * c
     qkv, temp, dout = _mdta_inputs(cuda_device, n, h, w, heads, c)
-    lib = attention.load_library()
+    lib = attention.LIBRARY.load()
     out, a, g, norms = attention.launch_forward(lib, qkv, temp, heads)
     dqkv, dtemp = attention.launch_backward(lib, dout, qkv, temp, heads, a, g, norms)
     ref = attention.plain_forward(qkv.float(), temp, heads)
@@ -791,7 +805,7 @@ def test_mdta_runs_are_bit_identical_run_to_run(cuda_device):
     bits, every output."""
     for shape in [(4, 256, 256, 1, 96), (4, 32, 32, 8, 48), (2, 37, 29, 2, 48)]:
         qkv, temp, dout = _mdta_inputs(cuda_device, *shape)
-        lib = attention.load_library()
+        lib = attention.LIBRARY.load()
         runs = []
         for _ in range(2):
             fwd = attention.launch_forward(lib, qkv, temp, shape[3])
@@ -875,7 +889,7 @@ def test_layernorm_kernels_equal_the_composition(cuda_device, shape, dtype):
     1e-5 and 1e-4, f32 sums in other orders.  gw within 1e-5 of the
     channel's sum of |gy x r| over up to 262,144 pixels."""
     x, wgt, gy = _ln_inputs(cuda_device, shape, dtype)
-    lib = layernorm.load_library()
+    lib = layernorm.LIBRARY.load()
     y = layernorm.launch_forward(lib, x, wgt)
     gx, gw = layernorm.launch_backward(lib, gy, x, wgt)
     y_ref = layernorm.plain_forward(x.float(), wgt)
@@ -902,7 +916,7 @@ def test_layernorm_runs_are_bit_identical_run_to_run(cuda_device, dtype):
     bits, y, gx and gw alike."""
     for shape in [(4, 256, 256, 48), (4, 32, 32, 384), (3, 37, 29, 96)]:
         x, wgt, gy = _ln_inputs(cuda_device, shape, dtype)
-        lib = layernorm.load_library()
+        lib = layernorm.LIBRARY.load()
         runs = [(layernorm.launch_forward(lib, x, wgt),)
                 + layernorm.launch_backward(lib, gy, x, wgt) for _ in range(2)]
         assert all(torch.equal(a, b) for a, b in zip(*runs)), shape

@@ -206,7 +206,7 @@ def test_a_replayed_pooled_call_counts_36_epilogue_launches_a_step(monkeypatch, 
         fn(state, pool, [steps.fold_in(3, k * call + j) for j in range(k)])
         counts.append(bias_lrelu.launches - before)
     (graph,) = fn.graphs.values()
-    assert graph.epilogue_launches == 36 * k
+    assert graph.launches[bias_lrelu] == 36 * k
     assert counts == [36 * k] * 4 and steps.graph_replays(fn) == 3
 
 

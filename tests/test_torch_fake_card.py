@@ -7,7 +7,8 @@ capture that runs the call's Python for real on the CPU, streams that do
 nothing, and K1's wrapper and the plain versions of the conv epilogue
 (``models/epilogue.py``) and of Restormer's attention (``models/mdta.py``)
 and LayerNorm (``models/layernorm.py``) counting their CPU calls as
-launches.
+launches, K1's stand-in registered as a counted entry point
+(``_build.counted``).
 With ``_RecordingGraph`` a replay does nothing; with ``_ReplayingGraph``
 it runs the captured call's Python again on the graph's buffers and
 draws and writes its outputs into the graph's own, as a replay on the
@@ -20,11 +21,13 @@ path that replays by rerunning must train exactly as ``capture=False``.
 """
 
 import contextlib
+import inspect
 
 import numpy as onp
 import pytest
 import torch
 
+from eld_tpu_torch import _build
 from eld_tpu_torch.models import build_arch, epilogue, layernorm
 from eld_tpu_torch.models import mdta as attention
 from eld_tpu_torch.models.epilogue import bias_lrelu
@@ -69,10 +72,11 @@ class _RecordingGraph(_FakeGraph):
 class _ReplayingGraph(_RecordingGraph):
     """A replay runs the captured call's Python again, on the inputs the
     capture read and the draws its slots now hold, and writes the results
-    into the graph's outputs; ``state.step`` and K1's count are left to
-    the runner, as after a replay on the card.  The replay that follows
-    the capture in the same call reruns nothing: the capture ran that
-    call's work for real here, where the card's executes none."""
+    into the graph's outputs; ``state.step`` and the kernels' launch
+    counts are left to the runner, as after a replay on the card.  The
+    replay that follows the capture in the same call reruns nothing: the
+    capture ran that call's work for real here, where the card's executes
+    none."""
 
     def link(self, call, state, inputs):
         super().link(call, state, inputs)
@@ -83,17 +87,14 @@ class _ReplayingGraph(_RecordingGraph):
         if self.captured:
             self.captured = False
             return
-        state, kernel = self.state, steps.synthesize_kernel
-        step, launches = (state.step if state is not None else 0), kernel.launches
-        epilogue, mdta = bias_lrelu.launches, attention.mdta.launches
-        norm = layernorm.biasfree_layernorm.launches
+        state = self.state
+        step, launches = (state.step if state is not None else 0), _build.launch_counts()
         for out, new in zip(self.call.out, self.call._run(state, self.inputs)):
             out.copy_(new)
         if state is not None:
             state.step = step
-        kernel.launches, bias_lrelu.launches = launches, epilogue
-        attention.mdta.launches = mdta
-        layernorm.biasfree_layernorm.launches = norm
+        for entry, n in launches.items():
+            entry.launches = n
 
 
 class _FakeStream:
@@ -113,8 +114,6 @@ def install_fake_card(setattr, graph=_RecordingGraph):
         counting_kernel.launches += 1
         return real_kernel(*args, **kw)
 
-    counting_kernel.launches = 0
-
     def counting(plain, counter=bias_lrelu):
         def run(*args):
             counter.launches += 1
@@ -132,6 +131,8 @@ def install_fake_card(setattr, graph=_RecordingGraph):
 
     setattr(steps, "_captures", lambda device, *a: real_captures(torch.device("cuda"), *a))
     setattr(steps, "synthesize_kernel", counting_kernel)
+    setattr(_build, "COUNTED", list(_build.COUNTED))  # the registration below is undone
+    _build.counted(counting_kernel)
     setattr(epilogue, "plain_forward", counting(epilogue.plain_forward))
     setattr(epilogue, "plain_backward", counting(epilogue.plain_backward))
     setattr(attention, "plain_forward", counting(attention.plain_forward, attention.mdta))
@@ -218,3 +219,37 @@ def test_replaying_stand_in_trains_the_pool_as_the_eager_loop(monkeypatch):
     assert (rg, re_) == (3, 0)
     assert all(torch.equal(a, b) for a, b in zip(lg, le))
     assert all(torch.equal(a, b) for a, b in zip(pg, pe))
+
+
+# ---- launch counts through the registry ------------------------------------------
+
+def test_a_replayed_graph_counts_an_entry_point_registered_outside_the_package(monkeypatch):
+    """A kernel entry point registered with ``_build.counted`` here, in a
+    test, is counted through an eager call, a capture (replayed at once) and
+    a replay: the capture records the launches the graph holds and restores
+    the count, each replay adds them, and ``_GraphCall`` names no counted
+    entry point."""
+    install_fake_card(monkeypatch.setattr, _ReplayingGraph)
+
+    @_build.counted
+    def toy_kernel(x):
+        toy_kernel.launches += 1
+        return x * 2
+
+    def run(state, inputs, draws, grads):
+        return (toy_kernel(toy_kernel(inputs["x"])),)
+
+    call = steps._GraphCall(run, torch.device("cpu"), bind=lambda state, inputs: [],
+                            static=True)
+    counts, outs = [], []
+    for c in range(3):  # eager, capture (replayed at once), replay
+        before = toy_kernel.launches
+        (out,) = call(None, {"x": torch.full((3,), float(c))})
+        counts.append(toy_kernel.launches - before)
+        outs.append(out.tolist())
+    assert counts == [2, 2, 2] and call.replays == 2
+    assert call.launches[toy_kernel] == 2
+    assert outs == [[0.0] * 3, [4.0] * 3, [8.0] * 3]
+    source = inspect.getsource(steps._GraphCall)
+    assert toy_kernel in _build.COUNTED
+    assert not [entry.__name__ for entry in _build.COUNTED if entry.__name__ in source]

@@ -169,7 +169,7 @@ def test_a_replay_advances_step_and_launches_by_k_and_returns_copies():
     state = _scan_state()
     pool = {"clean": torch.from_numpy(_u16((4, 16, 16, 4), 0))}
     call = _pooled_call(k)
-    call.graph, call.launches = _FakeGraph(), k
+    call.graph, call.launches = _FakeGraph(), {synthesize_kernel: k}
     call.binding = _binding(state, pool)
     call.out = (torch.tensor(0.5), torch.tensor([0.75, 0.5, 0.25]))
     before = synthesize_kernel.launches

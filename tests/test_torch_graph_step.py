@@ -172,7 +172,7 @@ def test_step_graph_advances_step_and_launches_and_returns_copies(fake_card):
     got = [step(state, batch, fold_in(3, i)) for i in range(4)]
     call = _only(step)
     assert state.step == 4 and steps.synthesize_kernel.launches == 4
-    assert call.launches == 1 and call.replays == 3
+    assert call.launches[steps.synthesize_kernel] == 1 and call.replays == 3
     for m in got[1:]:
         assert m["Pixel"] is not call.out[0]
     before = [float(m["Pixel"]) for m in got]

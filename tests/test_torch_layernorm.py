@@ -204,5 +204,5 @@ def test_a_replayed_pooled_call_counts_four_norm_launches_a_block_and_step(monke
         fn(state, pool, [steps.fold_in(3, k * call + j) for j in range(k)])
         counts.append(biasfree_layernorm.launches - before)
     (graph,) = fn.graphs.values()
-    assert graph.layernorm_launches == 4 * SMALL_BLOCKS * k
+    assert graph.launches[biasfree_layernorm] == 4 * SMALL_BLOCKS * k
     assert counts == [4 * SMALL_BLOCKS * k] * 4 and steps.graph_replays(fn) == 3

@@ -1,7 +1,7 @@
 """Restormer (``models/restormer.py``) and its transposed attention
-(``models/mdta.py``) on the CPU: the port against ``restormer_reference.py``
-(plain f32, the authors' formulas) forward and in every parameter's
-gradient, the published widths' names, shapes and count, the eval
+(``models/mdta.py``) on the CPU: the port against the benchmark's plain
+Restormer, ``benchmark/archs/restormer.py`` (f32, the authors' formulas,
+read by path and not edited), forward and in every parameter's gradient, the published widths' names, shapes and count, the eval
 forward's alignment padding, two pooled train steps, the registry's
 refusals, the serving CLIs, the attention's plain backward against
 autograd of its composition, and the attention's launches in a replayed
@@ -18,6 +18,8 @@ roundings at most, so rtol 1e-4 with an atol of 1e-5 of the largest value
 orders of magnitude.
 """
 
+import os
+import sys
 import types
 
 import numpy as onp
@@ -32,12 +34,26 @@ from eld_tpu_torch.noise.params import load_camera_params
 from eld_tpu_torch.tools import denoise, export_model
 from eld_tpu_torch.train import steps
 from eld_tpu_torch.train.state import create_train_state
-from tests import restormer_reference as reference
 from tests.test_torch_fake_card import _ReplayingGraph, install_fake_card
 from tests.tiff_fixture import make_dng
 
+# the benchmark's modules import ``eldbench``; appended, so nothing of the repository's is shadowed
+sys.path.append(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                             "benchmark"))
+from eldbench import manifest  # noqa: E402
+
+reference = manifest.arch("restormer")
+
 SMALL = dict(dim=8, num_blocks=(1, 1, 1, 1), num_refinement_blocks=1, heads=(1, 2, 4, 8))
 SMALL_BLOCKS = 8  # 4 encoder levels, 2 decoder levels, decoder level 1, refinement
+PUBLISHED = dict(dim=48, num_blocks=(4, 6, 6, 8), num_refinement_blocks=4, heads=(1, 2, 4, 8))
+
+
+def _config(in_channels=4, out_channels=4, **widths):
+    """The benchmark module's configuration keys for ``Restormer(in_channels,
+    out_channels, **widths)`` at the published expansion factor 2.66."""
+    return dict(widths, in_channels=in_channels, out_channels=out_channels,
+                ffn_expansion_factor=2.66)
 
 
 @pytest.fixture(autouse=True)
@@ -82,7 +98,8 @@ def test_restormer_equals_the_reference_forward_and_parameter_gradients(remat):
     x = _array((2, 32, 32, 4), 5)
     w = _array((2, 32, 32, 4), 6)
     runs = []
-    for fn in (model, lambda t: reference.forward(dict(model.named_parameters()), t, **SMALL)):
+    for fn in (model, lambda t: reference.forward(_config(**SMALL), dict(model.named_parameters()),
+                                                  t, "f32")):
         model.zero_grad()
         y = fn(x)
         (y * w).sum().backward()
@@ -100,10 +117,10 @@ def test_published_widths_names_shapes_and_count():
     expansion 2.66 at 4 -> 4 channels: the authors' names in their order,
     26,112,964 parameters (26,111,668 at the published 3 -> 3)."""
     model = build_arch("restormer", 4, 4, base_width=48)
-    specs = reference.param_shapes(4, 4, **reference.PUBLISHED)
+    specs = reference.param_specs(_config(**PUBLISHED))
     assert [(n, tuple(t.shape)) for n, t in model.state_dict().items()] == specs
     assert sum(p.numel() for p in model.parameters()) == 26_112_964
-    assert sum(onp.prod(s) for _, s in reference.param_shapes(3, 3, **reference.PUBLISHED)) \
+    assert sum(onp.prod(s) for _, s in reference.param_specs(_config(3, 3, **PUBLISHED))) \
         == 26_111_668
     assert len([n for n, _ in specs if n.endswith("temperature")]) == 44
     assert model.alignment() == 8
@@ -282,7 +299,7 @@ def test_a_replayed_pooled_call_counts_two_attention_launches_a_block_and_step(m
         fn(state, pool, [steps.fold_in(3, k * call + j) for j in range(k)])
         counts.append(mdta.launches - before)
     (graph,) = fn.graphs.values()
-    assert graph.mdta_launches == 2 * SMALL_BLOCKS * k
+    assert graph.launches[mdta] == 2 * SMALL_BLOCKS * k
     assert counts == [2 * SMALL_BLOCKS * k] * 4 and steps.graph_replays(fn) == 3
 
 
