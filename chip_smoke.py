@@ -3650,6 +3650,7 @@ def main():
     p14 = phase14(card)
     p15 = phase15(card)
     p16 = phase16(card)
+    p17 = phase17(card)
 
     from eld_tpu_torch.noise.kernels import LIBRARY, REPLACES
 
@@ -3676,7 +3677,8 @@ def main():
         "max_abs_err_dev_seed": p10["10a"]["max_abs_err"],
         "kernel_ms_host_seed_10a": p10["10a"]["kernel_ms_host_seed"],
         "kernel_ms_dev_seed": p10["10a"]["kernel_ms_dev_seed"]},
-        epilogue_entry(epilogue4, p10, p14), mdta_entry(p15), layernorm_entry(p16)]}
+        epilogue_entry(epilogue4, p10, p14), mdta_entry(p15), layernorm_entry(p16),
+        dwconv_entry(p17)]}
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -3855,6 +3857,58 @@ def epilogue_entry(epilogue4, p10, p14) -> dict:
             "step_ms": p14["step"], "registers": p14["registers"], "build_s": p14["build_s"]}
 
 
+def _pooled_restormer(tag, entry, per_step, steps_per_call=10):
+    """The main path: the Engine's pooled trainer at the Restormer cell's
+    configuration (dim 48, bf16, batch 4 of 256^2), K = ``steps_per_call``,
+    on a pool of random patches; the eager call and the capture, then three
+    timed replays with the kernel entry point ``entry``'s count from 0,
+    checked at ``per_step`` launches a step.  Returns (ms a step, launches,
+    steps, peak allocated bytes)."""
+    import numpy as np
+    import torch
+
+    from eld_tpu_torch.config import Config
+    from eld_tpu_torch.train.engine import Engine
+    from eld_tpu_torch.train.steps import fold_in, graph_replays
+
+    with tempfile.TemporaryDirectory() as tmp:
+        eng = Engine(Config(device="cuda", netG="restormer", noise="eld", include=4,
+                            base_width=48, batch_size=4, bf16=True, is_train=True, no_log=True,
+                            no_verbose=True, checkpoints_dir=tmp, name="restormer"))
+        recs = np.random.default_rng(SEED).integers(0, 65535, (40, 256, 256, 4), dtype=np.uint16)
+        pool = {"clean": torch.from_numpy(recs).to("cuda")}
+        fn = eng._scan_fn(steps_per_call)
+        seeds = iter(range(1 << 20))
+        torch.cuda.reset_peak_memory_stats()
+
+        def call():
+            fn(eng.state, pool, [fold_in(SEED, next(seeds)) for _ in range(steps_per_call)])
+
+        call()
+        call()
+        torch.cuda.synchronize()
+        entry.launches = 0
+        calls, t0 = 3, time.perf_counter()
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / (calls * steps_per_call)
+        launches, steps = entry.launches, calls * steps_per_call
+        losses = fn.losses.float().cpu()
+        peak = torch.cuda.max_memory_allocated()
+        check(graph_replays(fn) == calls + 1, f"[{tag}] {graph_replays(fn)} replays")
+        check(launches == per_step * steps,
+              f"[{tag}] {launches} {entry.__name__} launches in {steps} pooled steps")
+        check(bool(torch.isfinite(losses).all()), f"[{tag}] pooled losses {losses.tolist()}")
+        eng.release_graphs()
+        del eng, fn, pool
+    torch.cuda.empty_cache()
+    print(f"[{tag}] pooled restormer dim 48, batch 4 of 256^2, K = {steps_per_call}: {ms:.2f} ms "
+          f"a step over {calls} replays, {entry.__name__} launches {launches} in {steps} steps "
+          f"({launches / steps:.1f} a step), peak allocated {peak} bytes", flush=True)
+    return ms, launches, steps, peak
+
+
 # ---- phase 15 -----------------------------------------------------------
 
 # Restormer's attention at the shapes of the cell syn-pool.restormer.p256b4
@@ -3867,7 +3921,6 @@ MDTA_REL = {"out": 4e-3, "dq": 4e-3, "dk": 4e-3, "dv": 4e-3, "dt": 1e-4}
 # reads q, k, v and writes out, the backward reads dOut, v, q, k and writes
 # dv, dq, dk (benchmark/archs/restormer.py::mdta_bytes)
 MDTA_BYTES = 22
-MDTA_STEPS_PER_CALL = 10
 
 
 def _mdta_kernel_name(mangled: str) -> str:
@@ -3899,14 +3952,10 @@ def _mdta_composition(qkv, temp, heads, dout):
 
 
 def phase15(card):
-    import numpy as np
     import torch
 
     from eld_tpu_torch._paths import CSRC_DIR
-    from eld_tpu_torch.config import Config
     from eld_tpu_torch.models import mdta as attention
-    from eld_tpu_torch.train.engine import Engine
-    from eld_tpu_torch.train.steps import fold_in, graph_replays
 
     t0 = time.perf_counter()
     lib = attention.LIBRARY.load()
@@ -3972,41 +4021,7 @@ def phase15(card):
     print("[15] a step's 44 attentions at batch 4 of 256^2: " + json.dumps(
         {k: round(v, 4) for k, v in step.items()}) + f"  ({card})", flush=True)
 
-    # the main path: the Engine's pooled trainer at the cell's configuration,
-    # K = 10, on a pool of random patches; the eager call and the capture,
-    # then timed replays with the attention's count from 0
-    with tempfile.TemporaryDirectory() as tmp:
-        eng = Engine(Config(device="cuda", netG="restormer", noise="eld", include=4,
-                            base_width=48, batch_size=4, bf16=True, is_train=True, no_log=True,
-                            no_verbose=True, checkpoints_dir=tmp, name="restormer"))
-        recs = np.random.default_rng(SEED).integers(0, 65535, (40, 256, 256, 4), dtype=np.uint16)
-        pool = {"clean": torch.from_numpy(recs).to(dev)}
-        fn = eng._scan_fn(MDTA_STEPS_PER_CALL)
-        seeds = iter(range(1 << 20))
-
-        def call():
-            fn(eng.state, pool, [fold_in(SEED, next(seeds)) for _ in range(MDTA_STEPS_PER_CALL)])
-
-        call()
-        call()
-        torch.cuda.synchronize()
-        attention.mdta.launches = 0
-        calls, t0 = 3, time.perf_counter()
-        for _ in range(calls):
-            call()
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3 / (calls * MDTA_STEPS_PER_CALL)
-        launches, steps = attention.mdta.launches, calls * MDTA_STEPS_PER_CALL
-        losses = fn.losses.float().cpu()
-        check(graph_replays(fn) == calls + 1, f"[15] {graph_replays(fn)} replays")
-        check(launches == 88 * steps, f"[15] {launches} mdta launches in {steps} pooled steps")
-        check(bool(torch.isfinite(losses).all()), f"[15] pooled losses {losses.tolist()}")
-        eng.release_graphs()
-        del eng, fn, pool
-    torch.cuda.empty_cache()
-    print(f"[15] pooled restormer dim 48, batch 4 of 256^2, K = {MDTA_STEPS_PER_CALL}: {ms:.2f} "
-          f"ms a step over {calls} replays, mdta launches {launches} in {steps} steps "
-          f"({launches / steps:.1f} a step) on {card}", flush=True)
+    ms, launches, steps, _ = _pooled_restormer("15", attention.mdta, 88)
     return {"build_s": build_s, "registers": regs, "rows": rows, "max_rel": worst,
             "step": step, "launches": launches, "steps": steps, "pooled_step_ms": ms}
 
@@ -4032,7 +4047,6 @@ LN_LEVELS = [(4, 256, 256, 48, 8), (4, 256, 256, 96, 16), (4, 128, 128, 96, 24),
 # the least bytes of one norm a channel-pixel, bf16: the forward reads x and
 # writes y, the backward reads x and gy and writes gx
 LN_BYTES = 10
-LN_STEPS_PER_CALL = 10
 
 
 def _ln_kernel_name(mangled: str) -> str:
@@ -4064,14 +4078,10 @@ def _ln_composition(x, wgt, gy):
 
 
 def phase16(card):
-    import numpy as np
     import torch
 
     from eld_tpu_torch._paths import CSRC_DIR
-    from eld_tpu_torch.config import Config
     from eld_tpu_torch.models import layernorm
-    from eld_tpu_torch.train.engine import Engine
-    from eld_tpu_torch.train.steps import fold_in, graph_replays
 
     ln = layernorm.biasfree_layernorm
     t0 = time.perf_counter()
@@ -4139,43 +4149,7 @@ def phase16(card):
     print("[16] a step's 88 norms at batch 4 of 256^2: " + json.dumps(
         {k: round(v, 4) for k, v in step.items()}) + f"  ({card})", flush=True)
 
-    # the main path: the Engine's pooled trainer at the cell's configuration,
-    # K = 10; the eager call and the capture, then timed replays with the
-    # norm's count from 0
-    with tempfile.TemporaryDirectory() as tmp:
-        eng = Engine(Config(device="cuda", netG="restormer", noise="eld", include=4,
-                            base_width=48, batch_size=4, bf16=True, is_train=True, no_log=True,
-                            no_verbose=True, checkpoints_dir=tmp, name="restormer"))
-        recs = np.random.default_rng(SEED).integers(0, 65535, (40, 256, 256, 4), dtype=np.uint16)
-        pool = {"clean": torch.from_numpy(recs).to(dev)}
-        fn = eng._scan_fn(LN_STEPS_PER_CALL)
-        seeds = iter(range(1 << 20))
-        torch.cuda.reset_peak_memory_stats()
-
-        def call():
-            fn(eng.state, pool, [fold_in(SEED, next(seeds)) for _ in range(LN_STEPS_PER_CALL)])
-
-        call()
-        call()
-        torch.cuda.synchronize()
-        ln.launches = 0
-        calls, t0 = 3, time.perf_counter()
-        for _ in range(calls):
-            call()
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3 / (calls * LN_STEPS_PER_CALL)
-        launches, steps = ln.launches, calls * LN_STEPS_PER_CALL
-        losses = fn.losses.float().cpu()
-        peak = torch.cuda.max_memory_allocated()
-        check(graph_replays(fn) == calls + 1, f"[16] {graph_replays(fn)} replays")
-        check(launches == 176 * steps, f"[16] {launches} LayerNorm launches in {steps} steps")
-        check(bool(torch.isfinite(losses).all()), f"[16] pooled losses {losses.tolist()}")
-        eng.release_graphs()
-        del eng, fn, pool
-    torch.cuda.empty_cache()
-    print(f"[16] pooled restormer dim 48, batch 4 of 256^2, K = {LN_STEPS_PER_CALL}: {ms:.2f} "
-          f"ms a step over {calls} replays, LayerNorm launches {launches} in {steps} steps "
-          f"({launches / steps:.1f} a step), peak allocated {peak} bytes on {card}", flush=True)
+    ms, launches, steps, _ = _pooled_restormer("16", ln, 176)
     return {"build_s": build_s, "registers": regs, "rows": rows, "max_err": worst,
             "step": step, "launches": launches, "steps": steps, "pooled_step_ms": ms}
 
@@ -4191,6 +4165,118 @@ def layernorm_entry(p16) -> dict:
             "max_err_of_tolerance": p16["max_err"],
             "step_ms": dict(p16["step"], pooled_step_ms=p16["pooled_step_ms"]),
             "registers": p16["registers"], "build_s": p16["build_s"]}
+
+
+# ---- phase 17 -----------------------------------------------------------
+
+# (dim 48, batch 4 of 256^2): (n, h, w, c, depthwise convs a step at that shape): MDTA's
+# 3 dim and GDFN's 2 int(2.66 dim) channels at each level, 4 + 4, 6 + 6, 6 + 6 and 8 blocks,
+# then decoder level 1 and the refinement at 2 dim, 4 + 4
+DW_LEVELS = [(4, 256, 256, 144, 4), (4, 256, 256, 254, 4), (4, 128, 128, 288, 12),
+             (4, 128, 128, 510, 12), (4, 64, 64, 576, 12), (4, 64, 64, 1020, 12),
+             (4, 32, 32, 1152, 8), (4, 32, 32, 2042, 8), (4, 256, 256, 288, 8),
+             (4, 256, 256, 510, 8)]
+# the least bytes of one depthwise conv a channel-pixel, bf16: the forward reads x and
+# writes y, the backward reads x and gy and writes gx
+DW_BYTES = 10
+
+
+def _dw_kernel_name(mangled: str) -> str:
+    """dwconv3_<pass>."""
+    import re
+
+    m = re.search(r"dwconv3_[a-z]+", mangled)
+    return m.group(0) if m else mangled
+
+
+def phase17(card):
+    """Restormer's depthwise convs (csrc/dwconv.cu) at the cell's ten shapes
+    against the f32 composition and timed; the pooled Restormer."""
+    import torch
+    import torch.nn.functional as F
+
+    from eld_tpu_torch._paths import CSRC_DIR
+    from eld_tpu_torch.models import dwconv
+
+    dw = dwconv.depthwise_conv3x3
+    lib = dwconv.LIBRARY.load()
+    out_dir = os.path.join(HERE, "build", "eld_tpu_torch", "ptxas")
+    os.makedirs(out_dir, exist_ok=True)
+    _, regs = _build_verbose(os.path.join(CSRC_DIR, "dwconv.cu"), out_dir)
+    regs = [dict(r, kernel=_dw_kernel_name(r["kernel"])) for r in regs]
+    print("[17] " + json.dumps(regs), flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    eps = torch.finfo(torch.bfloat16).eps
+    keys = ("fwd_ms", "bwd_ms", "plain_ms", "library_ms", "bound_ms")
+    rows, worst, step = [], {"y": 0.0, "gx": 0.0, "gw": 0.0}, dict.fromkeys(keys, 0.0)
+    for n, h, w, c, convs in DW_LEVELS:
+        x, gy = (torch.randn((n, h, w, c), generator=gen, device="cuda").to(torch.bfloat16)
+                 .permute(0, 3, 1, 2) for _ in range(2))
+        conv = torch.nn.Conv2d(c, c, 3, padding=1, groups=c, bias=False).cuda()
+        with torch.no_grad():
+            conv.weight.copy_(2 * torch.rand(conv.weight.shape, generator=gen, device="cuda") - 1)
+        rec, runs = {"shape": [n, h, w, c], "convs": convs}, []
+        for _ in range(2):
+            xg, before = x.clone().requires_grad_(True), dw.launches
+            conv.zero_grad()
+            y = dw(xg, conv)
+            y.backward(gy)
+            check(dw.launches == before + 2, f"[17] {rec['shape']}: {dw.launches - before} runs")
+            runs.append((y.detach(), xg.grad, conv.weight.grad.clone()))
+        check(all(torch.equal(a, b) for a, b in zip(*runs)), f"[17] {rec['shape']}: runs differ")
+        (y, gx, gw), wr = runs[0], conv.weight.detach().to(torch.bfloat16).float()
+        y_ref = dwconv.plain_forward(x.float(), wr)
+        gx_ref, gw_ref = dwconv.plain_backward(gy.float(), x.float(), wr)
+        gw_scale = dwconv.plain_backward(gy.float().abs(), x.float().abs(), wr)[1]
+        # each error in the card tests' units: y and gx against eps relative with an atol of
+        # 1e-5 of the largest value, gw against 1e-5 of the tap's sum of |x gy|
+        rec["err"] = {k: float(((a.float() - b).abs() / (eps * b.abs() + 1e-5 * b.abs().max()))
+                               .max()) for k, a, b in (("y", y, y_ref), ("gx", gx, gx_ref))}
+        rec["err"]["gw"] = float(((gw - gw_ref).abs() / (1e-5 * gw_scale)).max())
+        for name, err in rec["err"].items():
+            check(err <= 1.0, f"[17] {rec['shape']} {name}: {err} of the card tests' tolerance")
+            worst[name] = max(worst[name], err)
+        del runs, y, gx, y_ref, gx_ref
+        wgt = conv.weight.detach()
+        rec["fwd_ms"] = cuda_ms(lambda: dwconv.launch_forward(lib, x, wgt), spin=True)
+        rec["bwd_ms"] = cuda_ms(lambda: dwconv.launch_backward(lib, gy, x, wgt), spin=True)
+        rec["plain_ms"] = cuda_ms(lambda: (dwconv.plain_forward(x, wgt),
+                                           dwconv.plain_backward(gy, x, wgt)), reps=5, spin=True)
+
+        def library():  # cuDNN under bf16 autocast, as the model ran before
+            xg = x.detach().requires_grad_(True)
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                out = F.conv2d(xg, conv.weight, padding=1, groups=c)
+            torch.autograd.grad(out, (xg, conv.weight), gy)
+
+        rec["library_ms"] = cuda_ms(library, reps=10, spin=True)
+        rec["bound_ms"] = DW_BYTES * n * h * w * c / HBM_GBS / 1e6
+        rec["pct_of_bound"] = 100 * rec["bound_ms"] / (rec["fwd_ms"] + rec["bwd_ms"])
+        for key in keys:
+            step[key] += convs * rec[key]
+        rows.append(rec)
+        print("[17] " + json.dumps(rec), flush=True)
+        del x, gy
+    step["kernel_ms"] = step["fwd_ms"] + step["bwd_ms"]
+    step["pct_of_bound"] = 100 * step["bound_ms"] / step["kernel_ms"]
+    print("[17] a step's 88 depthwise convs at batch 4 of 256^2: " + json.dumps(
+        {k: round(v, 4) for k, v in step.items()}) + f"  ({card})", flush=True)
+    ms, launches, steps, _ = _pooled_restormer("17", dw, 176)
+    return {"registers": regs, "rows": rows, "max_err": worst, "step": step,
+            "launches": launches, "steps": steps, "pooled_step_ms": ms}
+
+
+def dwconv_entry(p17) -> dict:
+    """The depthwise convs' entry of the kernels' JSON line."""
+    from eld_tpu_torch.models.dwconv import LIBRARY
+
+    return {"name": "depthwise_conv3x3", "route": "cuda", "source": LIBRARY.source_paths[0],
+            "replaces": None,  # eld_tpu has no Restormer
+            # the pooled main path's own calls, counted from 0
+            "launches": p17["launches"], "launches_per_step": p17["launches"] / p17["steps"],
+            "max_err_of_tolerance": p17["max_err"],
+            "step_ms": dict(p17["step"], pooled_step_ms=p17["pooled_step_ms"]),
+            "registers": p17["registers"]}
 
 
 if __name__ == "__main__":

@@ -16,6 +16,9 @@ A 4-level encoder-decoder of transformer blocks, each
   * GDFN: a 1x1 conv to twice the hidden width, a 3x3 depthwise conv,
     ``gelu(x1) * x2`` (exact GELU), a 1x1 conv out.
 
+Both depthwise convs run as one hand-written kernel each way on the card
+(``models/dwconv.py``); their weights stay the ``nn.Conv2d`` modules'.
+
 Levels of ``dim``, 2, 4 and 8 ``dim`` channels with ``heads`` [1, 2, 4, 8]
 and [4, 6, 6, 8] blocks; a 3x3 conv and ``pixel_unshuffle(2)`` down, a 3x3
 conv and ``pixel_shuffle(2)`` up (torch's (c, di, dj) channel order),
@@ -41,6 +44,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from eld_tpu_torch.models.dwconv import LIBRARY as _DWCONV, depthwise_conv3x3
 from eld_tpu_torch.models.layernorm import LIBRARY as _LAYERNORM, biasfree_layernorm
 from eld_tpu_torch.models.mdta import LIBRARY as _MDTA, mdta
 
@@ -88,7 +92,7 @@ class Attention(nn.Module):
         self.project_out = nn.Conv2d(dim, dim, kernel_size=1, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        qkv = _cl(self.qkv_dwconv(self.qkv(x)))
+        qkv = depthwise_conv3x3(self.qkv(x), self.qkv_dwconv)  # dense channels-last
         out = mdta(qkv.permute(0, 2, 3, 1), self.temperature, self.num_heads)
         return self.project_out(out.permute(0, 3, 1, 2))
 
@@ -106,7 +110,7 @@ class FeedForward(nn.Module):
         self.project_out = nn.Conv2d(hidden, dim, kernel_size=1, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x1, x2 = self.dwconv(self.project_in(x)).chunk(2, dim=1)
+        x1, x2 = depthwise_conv3x3(self.project_in(x), self.dwconv).chunk(2, dim=1)
         return self.project_out(_cl(F.gelu(x1) * x2))
 
 
@@ -153,7 +157,7 @@ class Upsample(nn.Module):
 
 
 class Restormer(nn.Module):
-    KERNEL_LIBRARIES = (_MDTA, _LAYERNORM)  # the libraries its card path launches
+    KERNEL_LIBRARIES = (_MDTA, _LAYERNORM, _DWCONV)  # the libraries its card path launches
 
     def __init__(self, in_channels: int = 4, out_channels: int = 4, dim: int = 48,
                  num_blocks: Sequence[int] = NUM_BLOCKS,

@@ -400,6 +400,7 @@ _KERNEL_ENTRIES = {
         {"launches": 36, "steps": 1}, {"epilogue": {"launches": 36, "steps": 1}}, _PHASE),
     "mdta": lambda smoke: smoke.mdta_entry(_PHASE),
     "biasfree_layernorm": lambda smoke: smoke.layernorm_entry(_PHASE),
+    "depthwise_conv3x3": lambda smoke: smoke.dwconv_entry(_PHASE),
 }
 
 
@@ -437,3 +438,25 @@ def test_chip_smokes_layernorm_shapes_are_a_restormer_steps():
         "_ZN12_GLOBAL__N_18bfln_bwdI13__nv_bfloat16Li3EEEvPKT_S4_PKfPS2_Pflii") \
         == "bfln_bwd<bf16, 3>"
     assert smoke._ln_kernel_name("_ZN12_GLOBAL__N_19bfln_wsumEPKfPfii") == "bfln_wsum"
+
+
+def test_chip_smokes_depthwise_shapes_are_a_restormer_steps():
+    """chip_smoke.py phase 17's shapes are the 88 depthwise convs of a
+    Restormer step at dim 48 and batch 4 of 256^2 (two a block, each at its
+    level's pixel pitch and its own channels), and its byte bound is
+    ``metrics/dwconv.roofline_pct.py``'s count there, 31,368,806,400; the
+    kernel names it reports come from the mangled names ptxas prints."""
+    smoke = _chip_smoke()
+    pitch = {"encoder_level1": 1, "decoder_level1": 1, "refinement": 1, "encoder_level2": 2,
+             "decoder_level2": 2, "encoder_level3": 4, "decoder_level3": 4, "latent": 8}
+    model = build_arch("restormer", 4, 4, base_width=48)
+    convs = collections.Counter((256 // pitch[name.split(".")[0]], m.in_channels)
+                                for name, m in model.named_modules()
+                                if name.endswith(("qkv_dwconv", "ffn.dwconv")))
+    assert convs == {(h, c): k for _, h, _, c, k in smoke.DW_LEVELS}
+    assert sum(convs.values()) == 88
+    assert sum(smoke.DW_BYTES * n * h * w * c * k
+               for n, h, w, c, k in smoke.DW_LEVELS) == 31_368_806_400
+    assert smoke._dw_kernel_name(
+        "_ZN12_GLOBAL__N_111dwconv3_bwdEPKjS1_PKfPjPfNS_5TilesE") == "dwconv3_bwd"
+    assert smoke._dw_kernel_name("_ZN12_GLOBAL__N_112dwconv3_wsumEPKfPfii") == "dwconv3_wsum"

@@ -1,5 +1,6 @@
 """The port's noise kernel (and its device-seed entry), the conv epilogue's
-kernels, Restormer's attention (MDTA) and LayerNorm kernels, pooled trainer
+kernels, Restormer's attention (MDTA), LayerNorm and depthwise convolution
+kernels, pooled trainer
 and per-step train step (and their CUDA graphs against the eager
 paths, one process and data-parallel in a world-1 NCCL group), eval
 forward (and its CUDA graph), ISP, serving
@@ -26,8 +27,9 @@ from eld_tpu_torch.config import Config
 from eld_tpu_torch.core import emor, isp
 from eld_tpu_torch.data.loader import pool_to_device
 from eld_tpu_torch.data.patchstore import PatchStore, PatchStoreWriter
-from eld_tpu_torch.models import build_arch, epilogue, layernorm
+from eld_tpu_torch.models import build_arch, dwconv, epilogue, layernorm
 from eld_tpu_torch.models import mdta as attention
+from eld_tpu_torch.models.dwconv import depthwise_conv3x3
 from eld_tpu_torch.models.epilogue import bias_lrelu
 from eld_tpu_torch.models.layernorm import biasfree_layernorm
 from eld_tpu_torch.models.mdta import mdta
@@ -959,6 +961,117 @@ def test_pooled_restormer_calls_launch_the_layernorm_176_times_a_step(cuda_devic
         before = biasfree_layernorm.launches
         fn(eng.state, pool, [fold_in(1, 10 * call + j) for j in range(10)])
         counts.append(biasfree_layernorm.launches - before)
+    torch.cuda.synchronize(cuda_device)
+    assert counts == [1760] * 3 and graph_replays(fn) == 2
+    assert onp.isfinite(fn.losses.cpu().numpy()).all()
+
+
+# ---- Restormer's 3x3 depthwise convolutions -----------------------------------------
+
+# (n, h, w, c): every depthwise conv of the benchmark cell (dim 48, batch 4 of 256^2), MDTA's
+# 3 dim and GDFN's 2 int(2.66 dim) channels at each level, then a ragged frame and the
+# narrowest channels the kernels take
+DW_SHAPES = [(4, 256, 256, 144), (4, 256, 256, 254), (4, 128, 128, 288), (4, 128, 128, 510),
+             (4, 64, 64, 576), (4, 64, 64, 1020), (4, 32, 32, 1152), (4, 32, 32, 2042),
+             (4, 256, 256, 288), (4, 256, 256, 510), (3, 37, 29, 254), (1, 5, 7, 2)]
+
+
+def _dw_inputs(device, shape, seed=0):
+    """x and gy bf16 channels-last, and a conv whose weight is drawn in
+    [-1, 1)."""
+    n, h, w, c = shape
+    gen = torch.Generator(device=device).manual_seed(n * h * w + c + seed)
+    x = torch.randn((n, h, w, c), generator=gen, device=device).to(torch.bfloat16)
+    gy = torch.randn((n, h, w, c), generator=gen, device=device).to(torch.bfloat16)
+    conv = torch.nn.Conv2d(c, c, 3, padding=1, groups=c, bias=False).to(device)
+    with torch.no_grad():
+        conv.weight.copy_(2 * torch.rand(conv.weight.shape, generator=gen, device=device) - 1)
+    return x.permute(0, 3, 1, 2), gy.permute(0, 3, 1, 2), conv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", DW_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_dwconv_kernels_equal_the_composition(cuda_device, shape):
+    """The forward and backward runs against the f32 composition on the same
+    inputs and the weight rounded to bf16 (``plain_forward`` and
+    ``plain_backward`` in f32, which the CPU tests hold to autograd through
+    ``F.conv2d``).  y and gx are f32 sums of 9 products rounded once to bf16:
+    within one bf16 eps relative, and 1e-5 of the largest value where the
+    products cancel; gw within 1e-5 of the tap's sum of |x gy| over up to
+    262,144 pixels."""
+    x, gy, conv = _dw_inputs(cuda_device, shape)
+    wr = conv.weight.detach().to(torch.bfloat16).float()
+    lib = dwconv.LIBRARY.load()
+    y = dwconv.launch_forward(lib, x, conv.weight)
+    gx, gw = dwconv.launch_backward(lib, gy, x, conv.weight)
+    y_ref = dwconv.plain_forward(x.float(), wr)
+    gx_ref, gw_ref = dwconv.plain_backward(gy.float(), x.float(), wr)
+    bound = 1e-5 * dwconv.plain_backward(gy.float().abs(), x.float().abs(), wr)[1]
+    torch.cuda.synchronize(cuda_device)
+    assert y.dtype == gx.dtype == torch.bfloat16 and gw.dtype == torch.float32
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert gx.is_contiguous(memory_format=torch.channels_last)
+    eps = torch.finfo(torch.bfloat16).eps
+    for got, ref in ((y, y_ref), (gx, gx_ref)):
+        torch.testing.assert_close(got.float(), ref, rtol=eps, atol=1e-5 * float(ref.abs().max()))
+    assert gw.shape == conv.weight.shape and bool(((gw - gw_ref).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+def test_dwconv_runs_are_bit_identical_run_to_run(cuda_device):
+    """No float atomics: two runs each way on the same inputs give the same
+    bits, y, gx and gw alike."""
+    for shape in [(4, 256, 256, 254), (4, 32, 32, 2042), (3, 37, 29, 254)]:
+        x, gy, conv = _dw_inputs(cuda_device, shape, 1)
+        lib = dwconv.LIBRARY.load()
+        runs = [(dwconv.launch_forward(lib, x, conv.weight),)
+                + dwconv.launch_backward(lib, gy, x, conv.weight) for _ in range(2)]
+        assert all(torch.equal(a, b) for a, b in zip(*runs)), shape
+
+
+@pytest.mark.cuda
+def test_dwconv_on_the_card_refuses_what_the_kernels_do_not_take(cuda_device):
+    """bf16 at 254 channels runs the kernels (one launch counted each way); 255
+    channels, an f32 x, a stride of 2 or a bias is refused by name, and
+    nothing is launched or counted."""
+    before = depthwise_conv3x3.launches
+    x, gy, conv = _dw_inputs(cuda_device, (2, 8, 8, 254))
+    x.requires_grad_(True)
+    depthwise_conv3x3(x, conv).backward(gy)
+    assert depthwise_conv3x3.launches == before + 2
+    odd = torch.nn.Conv2d(255, 255, 3, padding=1, groups=255, bias=False).to(cuda_device)
+    wide = _dw_inputs(cuda_device, (2, 8, 8, 256))[0]
+    cases = [(wide[:, :255], odd, "torch.bfloat16 with 255 channels"),
+             (x.detach().float(), conv, "torch.float32 with 254 channels")]
+    for bad, c, what in cases:
+        with pytest.raises(ValueError, match=what):
+            depthwise_conv3x3(bad, c)
+        with pytest.raises(ValueError, match=what):
+            dwconv._backward(gy[:, :bad.shape[1]].to(bad.dtype), bad, c.weight)
+    for kw, what in ((dict(stride=2), "stride"), (dict(bias=True), "bias")):
+        c = torch.nn.Conv2d(254, 254, 3, padding=1, groups=254, **kw).to(cuda_device)
+        with pytest.raises(ValueError, match=what):
+            depthwise_conv3x3(x.detach(), c)
+    assert depthwise_conv3x3.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_pooled_restormer_calls_launch_the_dwconv_176_times_a_step(cuda_device, tmp_path):
+    """The benchmark's configuration (dim 48, bf16, batch 4) in the Engine's
+    pooled trainer at K = 10: the eager call, the capture's replay and a
+    replay each count 1,760 launches of the depthwise convs, 88 forward and
+    88 backward a step."""
+    recs = onp.random.default_rng(5).integers(0, 65535, (8, 64, 64, 4), dtype=onp.uint16)
+    pool = {"clean": torch.from_numpy(recs).to(cuda_device)}
+    eng = Engine(Config(device="cuda", netG="restormer", noise="eld", include=4, base_width=48,
+                        batch_size=4, bf16=True, is_train=True, no_log=True, no_verbose=True,
+                        checkpoints_dir=str(tmp_path), name="restormer"))
+    fn = eng._scan_fn(10)
+    counts = []
+    for call in range(3):
+        before = depthwise_conv3x3.launches
+        fn(eng.state, pool, [fold_in(1, 10 * call + j) for j in range(10)])
+        counts.append(depthwise_conv3x3.launches - before)
     torch.cuda.synchronize(cuda_device)
     assert counts == [1760] * 3 and graph_replays(fn) == 2
     assert onp.isfinite(fn.losses.cpu().numpy()).all()

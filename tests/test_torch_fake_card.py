@@ -4,11 +4,12 @@ the graph path (``train/steps.py::_GraphCall``) runs on the CPU.
 ``install_fake_card(setattr)`` routes CPU tensors down the graph path: a
 graph that counts its replays and remembers its registered generators, a
 capture that runs the call's Python for real on the CPU, streams that do
-nothing, and K1's wrapper and the plain versions of the conv epilogue
-(``models/epilogue.py``) and of Restormer's attention (``models/mdta.py``)
-and LayerNorm (``models/layernorm.py``) counting their CPU calls as
-launches, K1's stand-in registered as a counted entry point
-(``_build.counted``).
+nothing, and K1's wrapper and the plain versions of every other kernel
+entry point registered with ``_build.counted`` (each module's
+``plain_forward`` and ``plain_backward``: the conv epilogue, Restormer's
+attention, LayerNorm and depthwise convolutions) counting their CPU calls
+as launches of that entry point, K1's stand-in registered as a counted
+entry point too.
 With ``_RecordingGraph`` a replay does nothing; with ``_ReplayingGraph``
 it runs the captured call's Python again on the graph's buffers and
 draws and writes its outputs into the graph's own, as a replay on the
@@ -22,15 +23,14 @@ path that replays by rerunning must train exactly as ``capture=False``.
 
 import contextlib
 import inspect
+import sys
 
 import numpy as onp
 import pytest
 import torch
 
 from eld_tpu_torch import _build
-from eld_tpu_torch.models import build_arch, epilogue, layernorm
-from eld_tpu_torch.models import mdta as attention
-from eld_tpu_torch.models.epilogue import bias_lrelu
+from eld_tpu_torch.models import build_arch
 from eld_tpu_torch.noise.params import load_camera_params
 from eld_tpu_torch.train import steps
 from eld_tpu_torch.train.state import create_train_state
@@ -114,9 +114,9 @@ def install_fake_card(setattr, graph=_RecordingGraph):
         counting_kernel.launches += 1
         return real_kernel(*args, **kw)
 
-    def counting(plain, counter=bias_lrelu):
+    def counting(plain, entry):
         def run(*args):
-            counter.launches += 1
+            entry.launches += 1
             return plain(*args)
         return run
 
@@ -131,15 +131,13 @@ def install_fake_card(setattr, graph=_RecordingGraph):
 
     setattr(steps, "_captures", lambda device, *a: real_captures(torch.device("cuda"), *a))
     setattr(steps, "synthesize_kernel", counting_kernel)
+    for entry in _build.COUNTED:  # a kernel's CPU runs count as its entry point's launches
+        module = sys.modules[entry.__module__]
+        for plain in ("plain_forward", "plain_backward"):
+            if hasattr(module, plain):
+                setattr(module, plain, counting(getattr(module, plain), entry))
     setattr(_build, "COUNTED", list(_build.COUNTED))  # the registration below is undone
     _build.counted(counting_kernel)
-    setattr(epilogue, "plain_forward", counting(epilogue.plain_forward))
-    setattr(epilogue, "plain_backward", counting(epilogue.plain_backward))
-    setattr(attention, "plain_forward", counting(attention.plain_forward, attention.mdta))
-    setattr(attention, "plain_backward", counting(attention.plain_backward, attention.mdta))
-    norm = layernorm.biasfree_layernorm
-    setattr(layernorm, "plain_forward", counting(layernorm.plain_forward, norm))
-    setattr(layernorm, "plain_backward", counting(layernorm.plain_backward, norm))
     setattr(steps._GraphCall, "_capture", capture_and_link)
     setattr(torch.cuda, "CUDAGraph", graph)
     setattr(torch.cuda, "graph", capture)
