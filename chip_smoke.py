@@ -197,6 +197,29 @@ Phases, one line or block of output each; any failure exits non-zero:
      Engine's pooled trainer at the cell's configuration, K = 10: three
      timed replays with ``biasfree_layernorm.launches`` reset before them
      and checked at 176 a step;
+ 17. Restormer's depthwise convs (eld_tpu_torch/csrc/dwconv.cu), as
+     phase 16 does the norms, at the cell's ten shapes, with cuDNN's time;
+ 18. Uformer's shifted-window attention (eld_tpu_torch/csrc/wmsa.cu): its
+     build, registers and spills; at the shapes of the cell
+     syn-pool.uformer.p128b32 (batch 32 of 128^2 at embed_dim 32: heads of
+     32 channels at 128^2 to 8^2, shifted and not, with the decoder's
+     modulator table) ``window_attention`` itself forward and backward,
+     twice, bit for bit and one launch counted each way, against the f32
+     composition (``plain_forward``, ``plain_backward``) within the card
+     tests' relative tolerances; the kernels' time alone, the composition
+     under bf16 autocast they replace (``library_ms``: roll, partition,
+     scores, bias, mask, softmax, P v, reverse, and their backward) and the
+     byte bound (22 bytes a channel-pixel at 3,350 GB/s), per shape and
+     over a step's 40 attentions; LeFF's depthwise convs with their bias
+     (``depthwise_conv3x3`` at each layer's 4 C channels, batch 32) twice,
+     bit for bit, against the plain version within the card tests'
+     tolerances; then the Engine's pooled trainer at the cell's
+     configuration (--netG uformer --base_width 32 --bf16, batch 32,
+     K = 10): three timed replays with ``window_attention.launches`` and
+     ``depthwise_conv3x3.launches`` reset before them and checked at 80 a
+     step each, a fourth replay profiled (the ``wmsa_*`` kernels, no roll or
+     softmax kernel), and an eager step of the same Engine's model (no
+     aten::roll, bmm or softmax);
 and prints the kernels' JSON line, the card line, and a last JSON line
 {"ok": true, "device": {...}}.  It imports nothing of JAX.
 """
@@ -3651,6 +3674,7 @@ def main():
     p15 = phase15(card)
     p16 = phase16(card)
     p17 = phase17(card)
+    p18 = phase18(card)
 
     from eld_tpu_torch.noise.kernels import LIBRARY, REPLACES
 
@@ -3678,7 +3702,7 @@ def main():
         "kernel_ms_host_seed_10a": p10["10a"]["kernel_ms_host_seed"],
         "kernel_ms_dev_seed": p10["10a"]["kernel_ms_dev_seed"]},
         epilogue_entry(epilogue4, p10, p14), mdta_entry(p15), layernorm_entry(p16),
-        dwconv_entry(p17)]}
+        dwconv_entry(p17), wmsa_entry(p18)]}
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -3857,13 +3881,20 @@ def epilogue_entry(epilogue4, p10, p14) -> dict:
             "step_ms": p14["step"], "registers": p14["registers"], "build_s": p14["build_s"]}
 
 
-def _pooled_restormer(tag, entry, per_step, steps_per_call=10):
+def _pooled_train(tag, counts, steps_per_call=10, arch="restormer", width=48, batch=4,
+                  patch=256, profile=False):
     """The main path: the Engine's pooled trainer at the Restormer cell's
-    configuration (dim 48, bf16, batch 4 of 256^2), K = ``steps_per_call``,
-    on a pool of random patches; the eager call and the capture, then three
-    timed replays with the kernel entry point ``entry``'s count from 0,
-    checked at ``per_step`` launches a step.  Returns (ms a step, launches,
-    steps, peak allocated bytes)."""
+    configuration (dim 48, bf16, batch 4 of 256^2; or ``arch`` at ``width``,
+    ``batch`` and ``patch``), K = ``steps_per_call``, on a pool of random
+    patches; the eager call and the capture, then three timed replays with
+    each kernel entry point of ``counts`` (pairs of an entry point and its
+    launches a step) counted from 0 and checked.  With ``profile``, one more
+    replay under torch.profiler and, once the graphs are released, one eager
+    forward and backward of the same Engine's model under bf16 autocast.
+    Returns a dict: "ms" a step, "launches" by entry point's name, "steps",
+    "peak" allocated bytes; with ``profile`` also "kernels" (the profiled
+    replay's device ms a step by kernel) and "ops" (the eager step's
+    operators and their counts)."""
     import numpy as np
     import torch
 
@@ -3872,10 +3903,11 @@ def _pooled_restormer(tag, entry, per_step, steps_per_call=10):
     from eld_tpu_torch.train.steps import fold_in, graph_replays
 
     with tempfile.TemporaryDirectory() as tmp:
-        eng = Engine(Config(device="cuda", netG="restormer", noise="eld", include=4,
-                            base_width=48, batch_size=4, bf16=True, is_train=True, no_log=True,
-                            no_verbose=True, checkpoints_dir=tmp, name="restormer"))
-        recs = np.random.default_rng(SEED).integers(0, 65535, (40, 256, 256, 4), dtype=np.uint16)
+        eng = Engine(Config(device="cuda", netG=arch, noise="eld", include=4,
+                            base_width=width, batch_size=batch, bf16=True, is_train=True,
+                            no_log=True, no_verbose=True, checkpoints_dir=tmp, name=arch))
+        recs = np.random.default_rng(SEED).integers(0, 65535, (40, patch, patch, 4),
+                                                    dtype=np.uint16)
         pool = {"clean": torch.from_numpy(recs).to("cuda")}
         fn = eng._scan_fn(steps_per_call)
         seeds = iter(range(1 << 20))
@@ -3887,26 +3919,52 @@ def _pooled_restormer(tag, entry, per_step, steps_per_call=10):
         call()
         call()
         torch.cuda.synchronize()
-        entry.launches = 0
+        for entry, _ in counts:
+            entry.launches = 0
         calls, t0 = 3, time.perf_counter()
         for _ in range(calls):
             call()
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3 / (calls * steps_per_call)
-        launches, steps = entry.launches, calls * steps_per_call
+        steps = calls * steps_per_call
+        launches = {entry.__name__: entry.launches for entry, _ in counts}
         losses = fn.losses.float().cpu()
-        peak = torch.cuda.max_memory_allocated()
+        out = {"ms": ms, "launches": launches, "steps": steps,
+               "peak": torch.cuda.max_memory_allocated()}
         check(graph_replays(fn) == calls + 1, f"[{tag}] {graph_replays(fn)} replays")
-        check(launches == per_step * steps,
-              f"[{tag}] {launches} {entry.__name__} launches in {steps} pooled steps")
+        for entry, per_step in counts:
+            check(launches[entry.__name__] == per_step * steps,
+                  f"[{tag}] {launches[entry.__name__]} {entry.__name__} launches in {steps} "
+                  f"pooled steps")
         check(bool(torch.isfinite(losses).all()), f"[{tag}] pooled losses {losses.tolist()}")
+        if profile:
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            out["kernels"] = {}
+            for e in prof.key_averages():
+                t = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+                if t:
+                    out["kernels"][e.key] = (out["kernels"].get(e.key, 0.0)
+                                             + t / 1e3 / steps_per_call)
         eng.release_graphs()
+        if profile:
+            x = torch.rand((batch, patch, patch, 4), device="cuda")
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+                with torch.autocast("cuda", dtype=torch.bfloat16):
+                    y = eng.model(x)
+                y.float().mean().backward()
+                torch.cuda.synchronize()
+            out["ops"] = {e.key: e.count for e in prof.key_averages()}
+            del x, y
         del eng, fn, pool
     torch.cuda.empty_cache()
-    print(f"[{tag}] pooled restormer dim 48, batch 4 of 256^2, K = {steps_per_call}: {ms:.2f} ms "
-          f"a step over {calls} replays, {entry.__name__} launches {launches} in {steps} steps "
-          f"({launches / steps:.1f} a step), peak allocated {peak} bytes", flush=True)
-    return ms, launches, steps, peak
+    print(f"[{tag}] pooled {arch} width {width}, batch {batch} of {patch}^2, K = {steps_per_call}: "
+          f"{ms:.2f} ms a step over {calls} replays, "
+          + ", ".join(f"{name} launches {n} in {steps} steps ({n / steps:.1f} a step)"
+                      for name, n in launches.items())
+          + f", peak allocated {out['peak']} bytes", flush=True)
+    return out
 
 
 # ---- phase 15 -----------------------------------------------------------
@@ -4021,7 +4079,8 @@ def phase15(card):
     print("[15] a step's 44 attentions at batch 4 of 256^2: " + json.dumps(
         {k: round(v, 4) for k, v in step.items()}) + f"  ({card})", flush=True)
 
-    ms, launches, steps, _ = _pooled_restormer("15", attention.mdta, 88)
+    pooled = _pooled_train("15", [(attention.mdta, 88)])
+    ms, launches, steps = pooled["ms"], pooled["launches"][attention.mdta.__name__], pooled["steps"]
     return {"build_s": build_s, "registers": regs, "rows": rows, "max_rel": worst,
             "step": step, "launches": launches, "steps": steps, "pooled_step_ms": ms}
 
@@ -4149,7 +4208,8 @@ def phase16(card):
     print("[16] a step's 88 norms at batch 4 of 256^2: " + json.dumps(
         {k: round(v, 4) for k, v in step.items()}) + f"  ({card})", flush=True)
 
-    ms, launches, steps, _ = _pooled_restormer("16", ln, 176)
+    pooled = _pooled_train("16", [(ln, 176)])
+    ms, launches, steps = pooled["ms"], pooled["launches"][ln.__name__], pooled["steps"]
     return {"build_s": build_s, "registers": regs, "rows": rows, "max_err": worst,
             "step": step, "launches": launches, "steps": steps, "pooled_step_ms": ms}
 
@@ -4189,6 +4249,55 @@ def _dw_kernel_name(mangled: str) -> str:
     return m.group(0) if m else mangled
 
 
+def _dw_check(tag, shape, gen, bias=False):
+    """``depthwise_conv3x3`` at (n, h, w, c) ``shape`` on random bf16 x and gy
+    with a random weight (and bias), forward and backward twice: one launch
+    counted each way, the same bits both times, and y, gx, gw (and gb)
+    against the plain version in the card tests' units, each at most 1: y
+    and gx against a bf16 eps relative with an atol of 1e-5 of the largest
+    value, gw against 1e-5 of the tap's sum of |x gy|, gb against 1e-5 of the
+    channel's sum of |gy| (the sum of gy in f64 the reference).  Returns
+    (x, gy, conv, errors)."""
+    import torch
+
+    from eld_tpu_torch.models import dwconv
+
+    dw = dwconv.depthwise_conv3x3
+    n, h, w, c = shape
+    x, gy = (torch.randn((n, h, w, c), generator=gen, device="cuda").to(torch.bfloat16)
+             .permute(0, 3, 1, 2) for _ in range(2))
+    conv = torch.nn.Conv2d(c, c, 3, padding=1, groups=c, bias=bias).cuda()
+    with torch.no_grad():
+        for prm in conv.parameters():
+            prm.copy_(2 * torch.rand(prm.shape, generator=gen, device="cuda") - 1)
+    runs = []
+    for _ in range(2):
+        xg, before = x.clone().requires_grad_(True), dw.launches
+        conv.zero_grad()
+        y = dw(xg, conv)
+        y.backward(gy)
+        check(dw.launches == before + 2, f"[{tag}] {list(shape)}: {dw.launches - before} runs")
+        runs.append((y.detach(), xg.grad) + tuple(prm.grad.clone() for prm in conv.parameters()))
+    check(all(torch.equal(a, b) for a, b in zip(*runs)), f"[{tag}] {list(shape)}: runs differ")
+    y, gx, gw = runs[0][:3]
+    wr = conv.weight.detach().to(torch.bfloat16).float()
+    br = conv.bias.detach().to(torch.bfloat16).float() if bias else None
+    y_ref = dwconv.plain_forward(x.float(), wr, br)
+    gx_ref, gw_ref, _ = dwconv.plain_backward(gy.float(), x.float(), wr)
+    gw_scale = dwconv.plain_backward(gy.float().abs(), x.float().abs(), wr)[1]
+    eps = torch.finfo(torch.bfloat16).eps
+    err = {k: float(((a.float() - b).abs() / (eps * b.abs() + 1e-5 * b.abs().max())).max())
+           for k, a, b in (("y", y, y_ref), ("gx", gx, gx_ref))}
+    err["gw"] = float(((gw - gw_ref).abs() / (1e-5 * gw_scale)).max())
+    if bias:
+        g64 = gy.double()
+        err["gb"] = float(((runs[0][3] - g64.sum((0, 2, 3))).abs()
+                           / (1e-5 * g64.abs().sum((0, 2, 3)))).max())
+    for name, e in err.items():
+        check(e <= 1.0, f"[{tag}] {list(shape)} {name}: {e} of the card tests' tolerance")
+    return x, gy, conv, err
+
+
 def phase17(card):
     """Restormer's depthwise convs (csrc/dwconv.cu) at the cell's ten shapes
     against the f32 composition and timed; the pooled Restormer."""
@@ -4206,37 +4315,13 @@ def phase17(card):
     regs = [dict(r, kernel=_dw_kernel_name(r["kernel"])) for r in regs]
     print("[17] " + json.dumps(regs), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    eps = torch.finfo(torch.bfloat16).eps
     keys = ("fwd_ms", "bwd_ms", "plain_ms", "library_ms", "bound_ms")
     rows, worst, step = [], {"y": 0.0, "gx": 0.0, "gw": 0.0}, dict.fromkeys(keys, 0.0)
     for n, h, w, c, convs in DW_LEVELS:
-        x, gy = (torch.randn((n, h, w, c), generator=gen, device="cuda").to(torch.bfloat16)
-                 .permute(0, 3, 1, 2) for _ in range(2))
-        conv = torch.nn.Conv2d(c, c, 3, padding=1, groups=c, bias=False).cuda()
-        with torch.no_grad():
-            conv.weight.copy_(2 * torch.rand(conv.weight.shape, generator=gen, device="cuda") - 1)
-        rec, runs = {"shape": [n, h, w, c], "convs": convs}, []
-        for _ in range(2):
-            xg, before = x.clone().requires_grad_(True), dw.launches
-            conv.zero_grad()
-            y = dw(xg, conv)
-            y.backward(gy)
-            check(dw.launches == before + 2, f"[17] {rec['shape']}: {dw.launches - before} runs")
-            runs.append((y.detach(), xg.grad, conv.weight.grad.clone()))
-        check(all(torch.equal(a, b) for a, b in zip(*runs)), f"[17] {rec['shape']}: runs differ")
-        (y, gx, gw), wr = runs[0], conv.weight.detach().to(torch.bfloat16).float()
-        y_ref = dwconv.plain_forward(x.float(), wr)
-        gx_ref, gw_ref = dwconv.plain_backward(gy.float(), x.float(), wr)
-        gw_scale = dwconv.plain_backward(gy.float().abs(), x.float().abs(), wr)[1]
-        # each error in the card tests' units: y and gx against eps relative with an atol of
-        # 1e-5 of the largest value, gw against 1e-5 of the tap's sum of |x gy|
-        rec["err"] = {k: float(((a.float() - b).abs() / (eps * b.abs() + 1e-5 * b.abs().max()))
-                               .max()) for k, a, b in (("y", y, y_ref), ("gx", gx, gx_ref))}
-        rec["err"]["gw"] = float(((gw - gw_ref).abs() / (1e-5 * gw_scale)).max())
-        for name, err in rec["err"].items():
-            check(err <= 1.0, f"[17] {rec['shape']} {name}: {err} of the card tests' tolerance")
-            worst[name] = max(worst[name], err)
-        del runs, y, gx, y_ref, gx_ref
+        x, gy, conv, err = _dw_check("17", (n, h, w, c), gen)
+        rec = {"shape": [n, h, w, c], "convs": convs, "err": err}
+        for name, e in err.items():
+            worst[name] = max(worst[name], e)
         wgt = conv.weight.detach()
         rec["fwd_ms"] = cuda_ms(lambda: dwconv.launch_forward(lib, x, wgt), spin=True)
         rec["bwd_ms"] = cuda_ms(lambda: dwconv.launch_backward(lib, gy, x, wgt), spin=True)
@@ -4261,7 +4346,8 @@ def phase17(card):
     step["pct_of_bound"] = 100 * step["bound_ms"] / step["kernel_ms"]
     print("[17] a step's 88 depthwise convs at batch 4 of 256^2: " + json.dumps(
         {k: round(v, 4) for k, v in step.items()}) + f"  ({card})", flush=True)
-    ms, launches, steps, _ = _pooled_restormer("17", dw, 176)
+    pooled = _pooled_train("17", [(dw, 176)])
+    ms, launches, steps = pooled["ms"], pooled["launches"][dw.__name__], pooled["steps"]
     return {"registers": regs, "rows": rows, "max_err": worst, "step": step,
             "launches": launches, "steps": steps, "pooled_step_ms": ms}
 
@@ -4277,6 +4363,216 @@ def dwconv_entry(p17) -> dict:
             "max_err_of_tolerance": p17["max_err"],
             "step_ms": dict(p17["step"], pooled_step_ms=p17["pooled_step_ms"]),
             "registers": p17["registers"]}
+
+
+
+# ---- phase 18 -----------------------------------------------------------
+
+# Uformer's window attention at the shapes of the cell syn-pool.uformer.p128b32 (embed_dim 32,
+# batch 32 of 128^2, 32 channels a head): (n, h, w, heads, modulated, unshifted blocks,
+# shifted blocks), the encoder's layers, the bottleneck, the decoder's
+WMSA_LEVELS = [(32, 128, 128, 1, False, 1, 0), (32, 64, 64, 2, False, 1, 1),
+               (32, 32, 32, 4, False, 4, 4), (32, 16, 16, 8, False, 4, 4),
+               (32, 8, 8, 16, False, 2, 0), (32, 16, 16, 16, True, 4, 4),
+               (32, 32, 32, 8, True, 4, 4), (32, 64, 64, 4, True, 1, 1),
+               (32, 128, 128, 2, True, 1, 0)]
+# relative tolerances against the f32 composition, tests/test_torch_cuda.py's WMSA_REL and
+# WMSA_REL_MODULATED (with the modulator's table)
+WMSA_REL = {"out": 5e-3, "dq": 5e-3, "dk": 5e-3, "dv": 5e-3, "dbias": 1e-5}
+WMSA_REL_MODULATED = {"out": 8e-3, "dq": 8e-3, "dk": 8e-3, "dv": 8e-3, "dbias": 8e-3,
+                      "dtable": 8e-3}
+# the least bytes of one block's attention a channel-pixel, bf16: the forward reads q, k, v
+# and writes out, the backward reads q, k, v, dOut and writes dq, dk, dv
+# (benchmark/archs/uformer.py::wmsa_bytes)
+WMSA_BYTES = 22
+
+
+def _wmsa_kernel_name(mangled: str) -> str:
+    """wmsa_<pass><shift, modulated>."""
+    import re
+
+    m = re.search(r"(wmsa_(?:fwd|bwd|sum))(?:ILb(\d)ELb(\d)E)?", mangled)
+    if not m:
+        return mangled
+    return m.group(1) + (f"<{m.group(2)}, {m.group(3)}>" if m.group(2) else "")
+
+
+def _wmsa_composition(qkv, bias, table, heads, shift, dout):
+    """What the kernels replace: the authors' window attention in PyTorch ops
+    under bf16 autocast (roll, partition, the table added, q kᵀ, the bias,
+    the mask, softmax, P v, reverse, roll back), forward and backward."""
+    import torch
+
+    from eld_tpu_torch.models import wmsa
+
+    n, h, w, c3 = qkv.shape
+    c, win = c3 // 3, wmsa.WIN
+    x = qkv.detach().requires_grad_(True)
+    b = bias.detach().requires_grad_(True)
+    t = None if table is None else table.detach().requires_grad_(True)
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        xs = torch.roll(x, (-shift, -shift), (1, 2)) if shift else x
+        wins = wmsa.partition(xs, win)
+        if t is not None:
+            wins = wins + t
+        q, k, v = wins.reshape(wins.shape[0], win * win, 3, heads, c // heads).permute(2, 0, 3, 1,
+                                                                                      4)
+        s = (q * (c // heads) ** -0.5) @ k.transpose(-2, -1) + b
+        if shift:
+            mask = wmsa.shift_mask(h, w, win, shift, x.device)
+            s = (s.reshape(n, -1, heads, win * win, win * win) + mask[None, :, None]) \
+                .reshape(s.shape)
+        o = (s.softmax(-1) @ v).permute(0, 2, 1, 3).reshape(-1, win * win, c)
+        out = wmsa.reverse(o, n, h, w)
+        out = torch.roll(out, (shift, shift), (1, 2)) if shift else out
+    out.backward(dout.to(out.dtype))
+    return out, x.grad, b.grad
+
+
+def phase18(card):
+    import torch
+
+    from eld_tpu_torch._paths import CSRC_DIR
+    from eld_tpu_torch.models import dwconv, wmsa
+
+    t0 = time.perf_counter()
+    lib = wmsa.LIBRARY.load()
+    build_s = time.perf_counter() - t0
+    out_dir = os.path.join(HERE, "build", "eld_tpu_torch", "ptxas")
+    os.makedirs(out_dir, exist_ok=True)
+    _, regs = _build_verbose(os.path.join(CSRC_DIR, "wmsa.cu"), out_dir)
+    regs = [dict(r, kernel=_wmsa_kernel_name(r["kernel"])) for r in regs]
+    print(f"[18] built wmsa in {build_s:.2f} s; " + json.dumps(regs), flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows, worst = [], {k: 0.0 for k in WMSA_REL_MODULATED}
+    keys = ("fwd_ms", "bwd_ms", "library_ms", "bound_ms")
+    step = dict.fromkeys(keys, 0.0)
+
+    def rel(got, ref):
+        return float((got.float() - ref.float()).norm() / ref.float().norm())
+
+    entry = wmsa.window_attention
+    for n, h, w, heads, modulated, plain_blocks, shifted_blocks in WMSA_LEVELS:
+        c = 32 * heads
+        qkv = torch.randn((n, h, w, 3 * c), generator=gen, device=dev).to(torch.bfloat16)
+        bias = 0.5 * torch.randn((heads, 64, 64), generator=gen, device=dev)
+        table = torch.randn((64, 3 * c), generator=gen, device=dev) if modulated else None
+        dout = torch.randn((n, h, w, c), generator=gen, device=dev).to(torch.bfloat16)
+        for shift, blocks in ((0, plain_blocks), (wmsa.WIN // 2, shifted_blocks)):
+            if not blocks:
+                continue
+            rec = {"shape": [n, h, w, heads], "shift": shift, "modulated": modulated,
+                   "blocks": blocks}
+            runs = []
+            for _ in range(2):
+                x, b = qkv.clone().requires_grad_(True), bias.clone().requires_grad_(True)
+                t = None if table is None else table.clone().requires_grad_(True)
+                before = entry.launches
+                y = entry(x, b, t, heads, shift)
+                y.backward(dout)
+                check(entry.launches - before == 2,
+                      f"[18] {rec['shape']}: {entry.launches - before} launches for a forward "
+                      f"and a backward")
+                runs.append((y.detach(), x.grad, b.grad) + (() if t is None else (t.grad,)))
+            check(all(torch.equal(a, b) for a, b in zip(*runs)),
+                  f"[18] {rec['shape']} shift {shift}: two runs differ")
+            y, dqkv, dbias = runs[0][:3]
+            ref, lse = wmsa.plain_forward(qkv.float(), bias, table, heads, shift)
+            dref, dbref, dtref = wmsa.plain_backward(dout.float(), qkv.float(), bias, table, lse,
+                                                     heads, shift)
+            rec["rel"] = {"out": rel(y, ref), "dq": rel(dqkv[..., :c], dref[..., :c]),
+                          "dk": rel(dqkv[..., c:2 * c], dref[..., c:2 * c]),
+                          "dv": rel(dqkv[..., 2 * c:], dref[..., 2 * c:]),
+                          "dbias": rel(dbias, dbref)}
+            if modulated:
+                rec["rel"]["dtable"] = rel(runs[0][3], dtref)
+            limits = WMSA_REL_MODULATED if modulated else WMSA_REL
+            for name, err in rec["rel"].items():
+                check(err <= limits[name], f"[18] {rec['shape']} {name}: relative error {err}")
+                worst[name] = max(worst[name], err)
+            del runs, ref, dref
+            fwd = wmsa.launch_forward(lib, qkv, bias, table, heads, shift)
+            rec["fwd_ms"] = cuda_ms(lambda: wmsa.launch_forward(lib, qkv, bias, table, heads,
+                                                                shift), spin=True)
+            rec["bwd_ms"] = cuda_ms(lambda: wmsa.launch_backward(lib, dout, qkv, bias, table,
+                                                                 fwd[1], heads, shift), spin=True)
+            rec["library_ms"] = cuda_ms(lambda: _wmsa_composition(qkv, bias, table, heads, shift,
+                                                                   dout), reps=10, spin=True)
+            rec["bound_ms"] = WMSA_BYTES * n * h * w * c / HBM_GBS / 1e6
+            rec["pct_of_bound"] = 100 * rec["bound_ms"] / (rec["fwd_ms"] + rec["bwd_ms"])
+            for key in keys:
+                step[key] += blocks * rec[key]
+            rows.append(rec)
+            print("[18] " + json.dumps(rec), flush=True)
+            del fwd
+        del qkv, dout, table
+    step["kernel_ms"] = step["fwd_ms"] + step["bwd_ms"]
+    step["pct_of_bound"] = 100 * step["bound_ms"] / step["kernel_ms"]
+    print("[18] a step's 40 window attentions at batch 32 of 128^2: " + json.dumps(
+        {k: round(v, 4) for k, v in step.items()}) + f"  ({card})", flush=True)
+    # LeFF's depthwise convs, with their bias, at each layer's 4 C channels: 40 a step
+    leff = {"rows": [], "max_err": {k: 0.0 for k in ("y", "gx", "gw", "gb")}}
+    for n, h, w, heads, _, plain_blocks, shifted_blocks in WMSA_LEVELS:
+        shape = (n, h, w, 4 * 32 * heads)
+        err = _dw_check("18", shape, gen, bias=True)[3]
+        leff["rows"].append({"shape": list(shape), "convs": plain_blocks + shifted_blocks,
+                             "err": err})
+        print("[18] LeFF " + json.dumps(leff["rows"][-1]), flush=True)
+        for name, e in err.items():
+            leff["max_err"][name] = max(leff["max_err"][name], e)
+    print("[18] LeFF's biased depthwise convs, the largest errors in the card tests' units: "
+          + json.dumps(leff["max_err"]), flush=True)
+    pooled = _pooled_train("18", [(entry, 80), (dwconv.depthwise_conv3x3, 80)], arch="uformer",
+                           width=32, batch=32, patch=128, profile=True)
+    leff["launches"] = pooled["launches"][dwconv.depthwise_conv3x3.__name__]
+    return {"profile": _uformer_step_checks(pooled), "build_s": build_s, "registers": regs,
+            "rows": rows, "max_rel": worst, "step": step, "leff": leff,
+            "launches": pooled["launches"][entry.__name__], "steps": pooled["steps"],
+            "pooled_step_ms": pooled["ms"], "peak_bytes": pooled["peak"]}
+
+
+def _uformer_step_checks(pooled):
+    """What a Uformer step runs on the card, from phase 18's profiled pooled
+    run: the replay (K = 10) runs the ``wmsa_*`` kernels and no roll or
+    softmax kernel; the eager forward and backward under bf16 autocast runs
+    no aten::roll, no batched matmul and no softmax (the window attention is
+    its operator, 40 calls, and LeFF's conv another, 40 calls).  Returns the
+    replay's ten longest kernels (ms a step) and the counts checked."""
+    import re
+
+    kernels, ops = pooled["kernels"], pooled["ops"]
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    print("[18] a replayed pooled Uformer step, its ten longest kernels (ms a step): "
+          + json.dumps([[k[:90], round(v, 4)] for k, v in top]), flush=True)
+    names = " ".join(kernels)
+    check("wmsa_fwd" in names and "wmsa_bwd" in names, "[18] the replay runs no wmsa kernel")
+    # aten's roll_cuda_kernel and the softmax kernels (softmax_warp_*, cunn_SoftMax*); not
+    # the "unrolled" of PyTorch's elementwise kernels
+    bad = sorted({m.group(0) for m in re.finditer(r"(?<![a-z])roll\w*|\w*softmax\w*", names,
+                                                  re.IGNORECASE)})
+    check(not bad, f"[18] the replay runs {bad}")
+    banned_ops = ("aten::roll", "aten::bmm", "aten::_softmax", "aten::_softmax_backward_data")
+    found = {k: ops[k] for k in banned_ops if k in ops}
+    check(not found, f"[18] an eager Uformer step runs {found}")
+    calls = {op: ops.get(op, 0) for op in ("eld_tpu_torch::window_attention",
+                                           "eld_tpu_torch::depthwise_conv3x3")}
+    check(all(n == 40 for n in calls.values()), f"[18] an eager Uformer step calls {calls}")
+    return {"window_attentions": 40, "depthwise_convs": 40, "top_kernels": top,
+            "kernels": len(kernels)}
+
+
+def wmsa_entry(p18) -> dict:
+    """The window attention's entry of the kernels' JSON line."""
+    from eld_tpu_torch.models.wmsa import LIBRARY
+
+    return {"name": "window_attention", "route": "cuda", "source": LIBRARY.source_paths[0],
+            "replaces": None,  # eld_tpu has no Uformer
+            # the pooled main path's own calls, counted from 0
+            "launches": p18["launches"], "launches_per_step": p18["launches"] / p18["steps"],
+            "max_rel_err": p18["max_rel"], "step_ms": dict(p18["step"],
+                                                           pooled_step_ms=p18["pooled_step_ms"]),
+            "registers": p18["registers"], "build_s": p18["build_s"]}
 
 
 if __name__ == "__main__":

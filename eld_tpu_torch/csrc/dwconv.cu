@@ -1,6 +1,7 @@
-// Restormer's 3x3 depthwise convolutions for NVIDIA Hopper (sm_90a), one pass each way.
+// The 3x3 depthwise convolutions of Restormer and of Uformer's LeFF for NVIDIA Hopper (sm_90a),
+// one pass each way.
 //
-// Replaces no TPU kernel: eld_tpu has no Restormer.  Each transformer block runs two
+// Replaces no TPU kernel: eld_tpu has neither model.  Each Restormer transformer block runs two
 // depthwise 3x3 convolutions (zero padding 1, stride 1, no bias): MDTA's over its q, k, v
 // (3 dim channels) and GDFN's over its two gate halves (2 int(2.66 dim) channels: 254, 510,
 // 1020 and 2042 at dim 48).  cuDNN ran each as three kernels (forward, dgrad, wgrad), each
@@ -8,13 +9,16 @@
 // For x in NHWC order, C channels a pixel, and the (C, 1, 3, 3) weight k with taps
 // d = (i - 1, j - 1):
 //
-//   forward   y(p)      = sum_d x(p + d) k[d]          (x zero outside the frame)
+//   forward   y(p)      = sum_d x(p + d) k[d] (+ b)    (x zero outside the frame)
 //   backward  gx(q)     = sum_d gy(q - d) k[d]         (the flipped stencil of gy)
 //             gw[c][d]  = sum_p gy(p) x(p + d) = sum_q x(q) gy(q - d)
+//             gb[c]     = sum_q gy(q)                  (with a bias)
 //
-// in f32 from bf16 operands, with k rounded to bf16 as autocast rounded it for cuDNN; y and
-// gx are rounded once to bf16, gw stays f32.  Both backward terms read the same 3x3 window of
-// gy around q and x at q alone, so the backward is one pass over x and gy.
+// in f32 from bf16 operands, with k (and b) rounded to bf16 as autocast rounded them for
+// cuDNN; y and gx are rounded once to bf16, gw and gb stay f32.  All backward terms read the
+// same 3x3 window of gy around q and x at q alone, so the backward is one pass over x and gy.
+// The bias is optional (Uformer's LeFF has one, Restormer's convs none): a template parameter,
+// so that the kernels without it are the code they were before it existed.
 //
 // What bounds it on an H100: bytes.  The forward reads x and writes y, the backward reads x
 // and gy and writes gx: 4 and 6 bytes a channel-pixel in bf16, against 18 f32 FMAs a
@@ -46,8 +50,9 @@
 //  - The weight gradient is deterministic, with no float atomics: each lane adds its 9 taps
 //    of its two channels in registers over its band; the block adds its warps' sums in a
 //    fixed order into one row of an f32 workspace of [tiles, C, 9]; dwconv3_wsum adds the
-//    rows in a fixed order.  The same shape on the same card gives the same bits, so a CUDA
-//    graph replays what the eager call computed.
+//    rows in a fixed order; the bias's gradient likewise, from a tenth row of sums.  The same
+//    shape on the same card gives the same bits, so a CUDA graph replays what the eager call
+//    computed.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -86,8 +91,8 @@ constexpr size_t kBwdSmem = sizeof(uint32_t) * stages<kBwdStep>() * (kRingWords 
 static_assert(kMinRows % kFwdStep == 0 && kMinRows % kBwdStep == 0, "whole iterations a band");
 static_assert(kFwdSmem <= 48 * 1024 && kBwdSmem <= 48 * 1024,
               "each ring fits the default shared memory of a block");
-static_assert(kBwdSmem >= sizeof(float) * kWarps * 2 * kTaps * (kLanes + 1),
-              "the backward's ring holds the warps' weight-gradient sums at the end");
+static_assert(kBwdSmem >= sizeof(float) * kWarps * 2 * (kTaps + 1) * (kLanes + 1),
+              "the backward's ring holds the warps' weight- and bias-gradient sums at the end");
 
 // the two channels of a pair as f32 (the lower address is the first channel)
 __device__ inline float lo(uint32_t v) { return __uint_as_float(v << 16); }
@@ -244,9 +249,11 @@ __device__ inline unsigned word_bits(const Tiles& g, const Tile& t, int q, int c
   return (static_cast<unsigned>(t.img * g.h + q) * g.w + col) * static_cast<unsigned>(g.pairs);
 }
 
-// y over the block's tile.  Dynamic shared memory: kFwdSmem.
+// y over the block's tile (plus the bias b where BIAS).  Dynamic shared memory: kFwdSmem.
+template <bool BIAS>
 __global__ void __launch_bounds__(kThreads) dwconv3_fwd(const uint32_t* __restrict__ x,
                                                         const float* __restrict__ wt,
+                                                        const float* __restrict__ b,
                                                         uint32_t* __restrict__ y, Tiles g) {
   constexpr int STEP = kFwdStep;
   extern __shared__ uint32_t ring[];
@@ -254,6 +261,13 @@ __global__ void __launch_bounds__(kThreads) dwconv3_fwd(const uint32_t* __restri
   const Ring<STEP> rg(t);
   float k0[kTaps], k1[kTaps];
   taps(wt, t, k0, k1);
+  float b0 = 0.0f, b1 = 0.0f;
+  if constexpr (BIAS) {
+    if (t.live) {
+      b0 = round_bf16(b[2 * t.pair]);
+      b1 = round_bf16(b[2 * t.pair + 1]);
+    }
+  }
   const RowCopy<kTileCols + 2> copy(g, t, -1);
   auto issue = [&](int q, int s) { copy.row(x, g, t, q, ring + s * kRingWords); };
   rg.prologue(issue);
@@ -301,19 +315,26 @@ __global__ void __launch_bounds__(kThreads) dwconv3_fwd(const uint32_t* __restri
       const int64_t out =
           ((static_cast<int64_t>(t.img) * g.h + r + o) * g.w + t.c0 + t.first) * g.pairs + t.pair;
 #pragma unroll
-      for (int j = 0; j < kCols; ++j)
+      for (int j = 0; j < kCols; ++j) {
+        if constexpr (BIAS) {
+          a0[o][j] += b0;
+          a1[o][j] += b1;
+        }
         if (t.c0 + t.first + j < g.w) y[out + j * g.pairs] = pack(a0[o][j], a1[o][j]);
+      }
     }
   }
   wait_pending<0>();  // no copy outlives the block
 }
 
 // gx over the block's tile, and partial[tile][ch][tap] = the tile's f32 sum of
-// gy(q - d) x(q).  Dynamic shared memory: kBwdSmem, gy's ring then x's.
+// gy(q - d) x(q) (and, where BIAS, partial_b[tile][ch] = its sum of gy(q)).  Dynamic shared
+// memory: kBwdSmem, gy's ring then x's.
+template <bool BIAS>
 __global__ void __launch_bounds__(kThreads)
     dwconv3_bwd(const uint32_t* __restrict__ x, const uint32_t* __restrict__ gy,
                 const float* __restrict__ wt, uint32_t* __restrict__ gx,
-                float* __restrict__ partial, Tiles g) {
+                float* __restrict__ partial, float* __restrict__ partial_b, Tiles g) {
   constexpr int STEP = kBwdStep;
   extern __shared__ uint32_t ring[];
   uint32_t* xring = ring + stages<STEP>() * kRingWords;
@@ -323,6 +344,7 @@ __global__ void __launch_bounds__(kThreads)
   taps(wt, t, k0, k1);
 #pragma unroll
   for (int i = 0; i < kTaps; ++i) w0[i] = w1[i] = 0.0f;
+  float gb0 = 0.0f, gb1 = 0.0f;  // the bias's gradient: the centre tap's gy, every output once
   const RowCopy<kTileCols + 2> copy_gy(g, t, -1);
   const RowCopy<kTileCols> copy_x(g, t, 0);
   auto issue = [&](int q, int s) {  // gy row q with its halo; x row q where the band reads it
@@ -377,6 +399,12 @@ __global__ void __launch_bounds__(kThreads)
             g1[o][j] = __fmaf_rn(f1[o + 2 - di], k1[tap], g1[o][j]);
             w0[tap] = __fmaf_rn(f0[o + 2 - di], x0[o][j], w0[tap]);
             w1[tap] = __fmaf_rn(f1[o + 2 - di], x1[o][j], w1[tap]);
+            if constexpr (BIAS) {
+              if (tap == 4) {
+                gb0 = __fadd_rn(gb0, f0[o + 1]);
+                gb1 = __fadd_rn(gb1, f1[o + 1]);
+              }
+            }
           }
       }
     }
@@ -394,21 +422,30 @@ __global__ void __launch_bounds__(kThreads)
   // the warps hold the same channels: warp 0 adds their sums in order, in the ring's memory
   wait_pending<0>();
   __syncthreads();
-  float* sums = reinterpret_cast<float*>(ring);  // [warp][2 * kTaps][kLanes + 1]
+  constexpr int kSums = 2 * kTaps + (BIAS ? 2 : 0);  // a warp's rows of sums
+  float* sums = reinterpret_cast<float*>(ring);  // [warp][kSums][kLanes + 1]
 #pragma unroll
   for (int i = 0; i < kTaps; ++i) {
-    sums[(t.warp * 2 * kTaps + i) * (kLanes + 1) + t.lane] = w0[i];
-    sums[(t.warp * 2 * kTaps + kTaps + i) * (kLanes + 1) + t.lane] = w1[i];
+    sums[(t.warp * kSums + i) * (kLanes + 1) + t.lane] = w0[i];
+    sums[(t.warp * kSums + kTaps + i) * (kLanes + 1) + t.lane] = w1[i];
+  }
+  if constexpr (BIAS) {
+    sums[(t.warp * kSums + 2 * kTaps) * (kLanes + 1) + t.lane] = gb0;
+    sums[(t.warp * kSums + 2 * kTaps + 1) * (kLanes + 1) + t.lane] = gb1;
   }
   __syncthreads();
   if (t.warp == 0 && t.live) {
     float* row = partial + (static_cast<int64_t>(t.index) * g.pairs + t.pair) * 2 * kTaps;
 #pragma unroll
-    for (int i = 0; i < 2 * kTaps; ++i) {
+    for (int i = 0; i < kSums; ++i) {
       float v = sums[i * (kLanes + 1) + t.lane];
       for (int wi = 1; wi < kWarps; ++wi)
-        v = __fadd_rn(v, sums[(wi * 2 * kTaps + i) * (kLanes + 1) + t.lane]);
-      row[i] = v;  // [channel 2 pair, 2 pair + 1][tap]
+        v = __fadd_rn(v, sums[(wi * kSums + i) * (kLanes + 1) + t.lane]);
+      if (i < 2 * kTaps) {
+        row[i] = v;  // [channel 2 pair, 2 pair + 1][tap]
+      } else if constexpr (BIAS) {
+        partial_b[static_cast<int64_t>(t.index) * 2 * g.pairs + 2 * t.pair + i - 2 * kTaps] = v;
+      }
     }
   }
 }
@@ -463,7 +500,8 @@ extern "C" {
 
 // x, y, gy and gx are dense NHWC bf16 of n images of h x w pixels and c channels, c even,
 // x and gy on a 16-byte boundary, y and gx on a 4-byte one; w is the (c, 1, 3, 3) f32
-// weight, partial an f32 workspace of [tiles, c, 9] and gw the f32 (c, 1, 3, 3) gradient.
+// weight, partial an f32 workspace of [tiles, c, 9] and gw the f32 (c, 1, 3, 3) gradient; b,
+// partial_b ([tiles, c]) and gb the optional bias, its workspace and its f32 gradient.
 // Each returns cudaGetLastError() after its launches, or cudaErrorInvalidValue for
 // arguments it does not take.
 
@@ -477,11 +515,12 @@ int eld_dwconv3_plan(int n, int h, int w, int c, int backward, int* rows, int* t
   if (rc == 0)
     rc = static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device));
   if (rc == 0) {
+    // the plan is the bias-free kernels': the same tiles with or without a bias
     rc = static_cast<int>(
-        backward ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dwconv3_bwd, kThreads,
-                                                                 kBwdSmem)
-                 : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dwconv3_fwd, kThreads,
-                                                                 kFwdSmem));
+        backward ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dwconv3_bwd<false>,
+                                                                 kThreads, kBwdSmem)
+                 : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dwconv3_fwd<false>,
+                                                                 kThreads, kFwdSmem));
   }
   if (rc != 0) return rc;
   const int64_t want = static_cast<int64_t>(kWaves) * sms * (per_sm > 0 ? per_sm : 1);
@@ -493,40 +532,60 @@ int eld_dwconv3_plan(int n, int h, int w, int c, int backward, int* rows, int* t
   return 0;
 }
 
-// y = the depthwise 3x3 convolution of x with w.
-int eld_dwconv3_fwd(const void* x, const float* w, void* y, int n, int h, int wd, int c,
-                    int rows, void* stream) {
+// y = the depthwise 3x3 convolution of x with w, plus the (c) f32 bias b unless b is null.
+int eld_dwconv3_fwd(const void* x, const float* w, const float* b, void* y, int n, int h, int wd,
+                    int c, int rows, void* stream) {
   if (!takes(n, h, wd, c) || rows < 1 || rows % kFwdStep || !aligned(x, 16) || !aligned(y, 4))
     return static_cast<int>(cudaErrorInvalidValue);
   const Tiles g = tiles_of(n, h, wd, c, rows);
   const int64_t blocks = blocks_of(g);
   if (blocks == 0) return 0;
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  dwconv3_fwd<<<static_cast<unsigned>(blocks), kThreads, kFwdSmem,
-                static_cast<cudaStream_t>(stream)>>>(static_cast<const uint32_t*>(x), w,
-                                                     static_cast<uint32_t*>(y), g);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* xs = static_cast<const uint32_t*>(x);
+  auto* ys = static_cast<uint32_t*>(y);
+  if (b)
+    dwconv3_fwd<true><<<static_cast<unsigned>(blocks), kThreads, kFwdSmem, s>>>(xs, w, b, ys, g);
+  else
+    dwconv3_fwd<false><<<static_cast<unsigned>(blocks), kThreads, kFwdSmem, s>>>(xs, w, b, ys, g);
   return static_cast<int>(cudaGetLastError());
 }
 
-// gx and gw; partial holds n * ceil(wd / kTileCols) * ceil(h / rows) rows of c * 9 floats.
+// gx and gw, and gb unless it is null; partial holds n * ceil(wd / kTileCols) * ceil(h / rows)
+// rows of c * 9 floats, partial_b (with gb) as many rows of c floats.
 int eld_dwconv3_bwd(const void* x, const void* gy, const float* w, void* gx, float* partial,
-                    float* gw, int n, int h, int wd, int c, int rows, void* stream) {
+                    float* gw, float* partial_b, float* gb, int n, int h, int wd, int c, int rows,
+                    void* stream) {
   if (!takes(n, h, wd, c) || rows < 1 || rows % kBwdStep || !aligned(x, 16) ||
-      !aligned(gy, 16) || !aligned(gx, 4))
+      !aligned(gy, 16) || !aligned(gx, 4) || (gb && !partial_b))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   const Tiles g = tiles_of(n, h, wd, c, rows);
   const int64_t blocks = blocks_of(g);
-  if (blocks == 0) return static_cast<int>(cudaMemsetAsync(gw, 0, sizeof(float) * kTaps * c, s));
+  if (blocks == 0) {
+    int rc = static_cast<int>(cudaMemsetAsync(gw, 0, sizeof(float) * kTaps * c, s));
+    if (rc == 0 && gb) rc = static_cast<int>(cudaMemsetAsync(gb, 0, sizeof(float) * c, s));
+    return rc;
+  }
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  dwconv3_bwd<<<static_cast<unsigned>(blocks), kThreads, kBwdSmem, s>>>(
-      static_cast<const uint32_t*>(x), static_cast<const uint32_t*>(gy), w,
-      static_cast<uint32_t*>(gx), partial, g);
-  const int rc = static_cast<int>(cudaGetLastError());
+  const auto* xs = static_cast<const uint32_t*>(x);
+  const auto* gys = static_cast<const uint32_t*>(gy);
+  auto* gxs = static_cast<uint32_t*>(gx);
+  if (gb)
+    dwconv3_bwd<true><<<static_cast<unsigned>(blocks), kThreads, kBwdSmem, s>>>(
+        xs, gys, w, gxs, partial, partial_b, g);
+  else
+    dwconv3_bwd<false><<<static_cast<unsigned>(blocks), kThreads, kBwdSmem, s>>>(
+        xs, gys, w, gxs, partial, partial_b, g);
+  int rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
+  const int rows_all = g.n * g.col_tiles * g.bands;
   const int entries = kTaps * c;
-  dwconv3_wsum<<<(entries + 31) / 32, dim3(32, kSumSlices), 0, s>>>(
-      partial, gw, g.n * g.col_tiles * g.bands, entries);
+  dwconv3_wsum<<<(entries + 31) / 32, dim3(32, kSumSlices), 0, s>>>(partial, gw, rows_all,
+                                                                    entries);
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0 || !gb) return rc;
+  dwconv3_wsum<<<(c + 31) / 32, dim3(32, kSumSlices), 0, s>>>(partial_b, gb, rows_all, c);
   return static_cast<int>(cudaGetLastError());
 }
 

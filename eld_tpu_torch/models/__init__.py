@@ -5,6 +5,7 @@ An unknown name raises the same ``KeyError`` as eld_tpu."""
 from typing import Callable, Dict
 
 from eld_tpu_torch.models.restormer import Restormer
+from eld_tpu_torch.models.uformer import Uformer
 from eld_tpu_torch.models.unet import UNetSeeInDark
 from eld_tpu_torch.models.unet_s2d import unet_s2d as _unet_s2d
 
@@ -41,13 +42,28 @@ def restormer(in_channels: int = 4, out_channels: int = 4, base_width: int = 48,
     """Restormer at its published settings, ``base_width`` its first level's
     width (``dim``).  The U-Net's options are refused by name away from the
     defaults every entry point passes."""
-    for name, value, default in (("skip_mode", skip_mode, "split"),
-                                 ("upsample", upsample, "convt"),
-                                 ("skip_dtype (--skip_bf16)", skip_dtype, None)):
-        if value != default:
-            raise ValueError(f"restormer has no U-Net {name}: got {value!r}; it takes only "
-                             f"the default {default!r}")
+    _transformer_options("restormer", skip_mode, upsample, skip_dtype)
     return Restormer(in_channels, out_channels, dim=base_width, remat=remat)
+
+
+def _transformer_options(name: str, skip_mode, upsample, skip_dtype):
+    for option, value, default in (("skip_mode", skip_mode, "split"),
+                                   ("upsample", upsample, "convt"),
+                                   ("skip_dtype (--skip_bf16)", skip_dtype, None)):
+        if value != default:
+            raise ValueError(f"{name} has no U-Net {option}: got {value!r}; it takes only "
+                             f"the default {default!r}")
+
+
+@register_arch("uformer")
+def uformer(in_channels: int = 4, out_channels: int = 4, base_width: int = 32,
+            remat: bool = False, skip_mode: str = "split", upsample: str = "convt",
+            skip_dtype=None) -> Uformer:
+    """Uformer-B at its published settings, ``base_width`` its ``embed_dim``.
+    The U-Net's options are refused by name away from the defaults every
+    entry point passes."""
+    _transformer_options("uformer", skip_mode, upsample, skip_dtype)
+    return Uformer(in_channels, out_channels, embed_dim=base_width, remat=remat)
 
 
 def build_arch(name: str, in_channels: int, out_channels: int, **kw):

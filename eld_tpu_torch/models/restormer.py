@@ -158,6 +158,7 @@ class Upsample(nn.Module):
 
 class Restormer(nn.Module):
     KERNEL_LIBRARIES = (_MDTA, _LAYERNORM, _DWCONV)  # the libraries its card path launches
+    SPATIAL_HALO = False  # its attention reduces over every pixel: no halo carries it
 
     def __init__(self, in_channels: int = 4, out_channels: int = 4, dim: int = 48,
                  num_blocks: Sequence[int] = NUM_BLOCKS,

@@ -148,7 +148,7 @@ def main(argv=None):
     src.add_argument("--artifact", help=".eldx serving artifact (eld_tpu_torch.export)")
     p.add_argument("--arch", "--netG", dest="arch", type=str, default="unet",
                    help="the network (the trainers' --netG): unet, unet_s2d, unet_s2d4, "
-                        "restormer")
+                        "restormer, uformer")
     p.add_argument("--channels", type=int, default=4)
     p.add_argument("--base_width", type=int, default=32)
     p.add_argument("--bf16", action="store_true", help="bf16 autocast (checkpoint path)")

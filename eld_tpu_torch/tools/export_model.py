@@ -31,12 +31,12 @@ def main(argv=None):
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--arch", "--netG", dest="arch", type=str, default="unet",
                    help="the network (the trainers' --netG): unet, unet_s2d, unet_s2d4, "
-                        "restormer")
+                        "restormer, uformer")
     p.add_argument("--channels", type=int, default=4)
     p.add_argument("--out_channels", type=int, default=None)
     p.add_argument("--base_width", type=int, default=32,
-                   help="the first level's width: the U-Net's level 0, Restormer's dim "
-                        "(must match the checkpoint)")
+                   help="the first level's width: the U-Net's level 0, Restormer's dim, "
+                        "Uformer's embed_dim (must match the checkpoint)")
     p.add_argument("--model_path", type=str, required=True, help="the port's .pt checkpoint")
     p.add_argument("--height", type=int, default=512)
     p.add_argument("--width", type=int, default=512)

@@ -124,6 +124,12 @@ class Engine:
                 upsample=cfg.upsample,
                 skip_dtype=torch.bfloat16 if cfg.skip_bf16 else None,
             )
+        if self._spatial_devices and not getattr(model, "SPATIAL_HALO", True):
+            raise ValueError(
+                f"{cfg.netG} cannot run under --mesh_spatial {cfg.mesh_spatial}: the spatial "
+                "forward shards a frame into slabs with a halo of a few pixels, and its "
+                "attention reaches across any such halo (a window's, or every pixel's), so the "
+                "slabs would not compute its forward; use --mesh_spatial 1")
         synthetic = cfg.noise not in (None, "", "none")
         if self.device.type == "cuda":
             # nvcc builds the kernels this run launches, each on a thread of

@@ -401,6 +401,7 @@ _KERNEL_ENTRIES = {
     "mdta": lambda smoke: smoke.mdta_entry(_PHASE),
     "biasfree_layernorm": lambda smoke: smoke.layernorm_entry(_PHASE),
     "depthwise_conv3x3": lambda smoke: smoke.dwconv_entry(_PHASE),
+    "window_attention": lambda smoke: smoke.wmsa_entry(_PHASE),
 }
 
 
@@ -460,3 +461,88 @@ def test_chip_smokes_depthwise_shapes_are_a_restormer_steps():
     assert smoke._dw_kernel_name(
         "_ZN12_GLOBAL__N_111dwconv3_bwdEPKjS1_PKfPjPfNS_5TilesE") == "dwconv3_bwd"
     assert smoke._dw_kernel_name("_ZN12_GLOBAL__N_112dwconv3_wsumEPKfPfii") == "dwconv3_wsum"
+
+
+def test_chip_smokes_window_attention_shapes_are_a_uformer_steps():
+    """chip_smoke.py phase 18's shapes are the 40 window attentions of a
+    Uformer-B step at embed_dim 32 and batch 32 of 128^2 (each at its
+    layer's pitch and heads, shifted or not, with the decoder's modulator),
+    and its byte bound is the benchmark's ``wmsa_bytes`` there,
+    5,582,618,624; the kernel names it reports come from the mangled names
+    ptxas prints."""
+    from eld_tpu_torch.models.uformer import LeWinTransformerBlock
+
+    smoke = _chip_smoke()
+    model = build_arch("uformer", 4, 4, base_width=32)
+    pitch = {"encoderlayer_0": 1, "encoderlayer_1": 2, "encoderlayer_2": 4, "encoderlayer_3": 8,
+             "conv": 16, "decoderlayer_0": 8, "decoderlayer_1": 4, "decoderlayer_2": 2,
+             "decoderlayer_3": 1}
+    blocks = collections.Counter(
+        (128 // pitch[name.split(".")[0]], m.attn.num_heads, m.modulator is not None, m.shift)
+        for name, m in model.named_modules() if isinstance(m, LeWinTransformerBlock))
+    want = collections.Counter()
+    for n, h, w, heads, modulated, plain, shifted in smoke.WMSA_LEVELS:
+        want[(h, heads, modulated, 0)] += plain
+        want[(h, heads, modulated, 4)] += shifted
+    assert blocks == +want and sum(blocks.values()) == 40
+    assert sum(smoke.WMSA_BYTES * n * h * w * 32 * heads * (plain + shifted)
+               for n, h, w, heads, _, plain, shifted in smoke.WMSA_LEVELS) == 5_582_618_624
+    assert smoke._wmsa_kernel_name(
+        "_ZN39_GLOBAL__N__4b94410b_7_wmsa_cu_1ebbe77d8wmsa_bwdILb1ELb0EEEvPK13__nv_bfloat16S3_"
+        "PKfS5_S5_PS1_PfS7_NS_3GeoE") == "wmsa_bwd<1, 0>"
+    assert smoke._wmsa_kernel_name(
+        "_ZN39_GLOBAL__N__4b94410b_7_wmsa_cu_1ebbe77d8wmsa_sumEPKfPfii") == "wmsa_sum"
+
+
+def test_chip_smokes_leff_shapes_are_a_uformer_steps():
+    """Phase 18 checks LeFF's depthwise convs at 4 C channels of each
+    attention layer it times: those are the 40 biased depthwise convs of a
+    Uformer-B step at embed_dim 32 and batch 32 of 128^2, at their pitch."""
+    from eld_tpu_torch.models.uformer import LeFF
+
+    smoke = _chip_smoke()
+    model = build_arch("uformer", 4, 4, base_width=32)
+    pitch = {"encoderlayer_0": 1, "encoderlayer_1": 2, "encoderlayer_2": 4, "encoderlayer_3": 8,
+             "conv": 16, "decoderlayer_0": 8, "decoderlayer_1": 4, "decoderlayer_2": 2,
+             "decoderlayer_3": 1}
+    convs = collections.Counter(
+        (128 // pitch[name.split(".")[0]], m.dwconv[0].in_channels, m.dwconv[0].bias is not None)
+        for name, m in model.named_modules() if isinstance(m, LeFF))
+    want = collections.Counter()
+    for n, h, w, heads, _, plain, shifted in smoke.WMSA_LEVELS:
+        want[(h, 4 * 32 * heads, True)] += plain + shifted
+    assert convs == want and sum(convs.values()) == 40
+
+
+_CLEAN_STEP = {"kernels": {"void wmsa_fwd<true, false>(...)": 0.1, "void wmsa_bwd<true, false>(...)":
+                           0.2, "void at::native::unrolled_elementwise_kernel<...>": 1.0},
+               "ops": {"eld_tpu_torch::window_attention": 40,
+                       "eld_tpu_torch::depthwise_conv3x3": 40, "aten::addmm": 160}}
+
+
+@pytest.mark.parametrize("fault", [
+    None, ("kernels", "void at::native::roll_cuda_kernel<float>(...)"),
+    ("kernels", "void at::native::softmax_warp_forward<...>"), ("ops", "aten::roll"),
+    ("ops", "aten::bmm"), ("ops", "aten::_softmax"), ("drop", "eld_tpu_torch::depthwise_conv3x3"),
+    ("drop", "eld_tpu_torch::window_attention"), ("drop", "void wmsa_bwd<true, false>(...)")],
+    ids=lambda f: "clean" if f is None else f"{f[0]}-{f[1].split('(')[0].split('<')[0][-24:]}")
+def test_chip_smokes_uformer_step_checks(fault):
+    """Phase 18's checks of the profiled pooled Uformer step pass a replay
+    that runs the ``wmsa_*`` kernels and PyTorch's "unrolled" elementwise
+    kernels, with 40 window attentions and 40 depthwise convs eager; a roll
+    or softmax kernel, a roll, batched matmul or softmax operator, or a
+    missing kernel or operator, fails the smoke."""
+    smoke = _chip_smoke()
+    step = {k: dict(v) for k, v in _CLEAN_STEP.items()}
+    if fault is None:
+        out = smoke._uformer_step_checks(step)
+        assert out["window_attentions"] == out["depthwise_convs"] == 40 and out["kernels"] == 3
+        return
+    where, name = fault
+    if where == "drop":
+        for table in step.values():
+            table.pop(name, None)
+    else:
+        step[where][name] = 1.0
+    with pytest.raises(SystemExit):
+        smoke._uformer_step_checks(step)

@@ -1,6 +1,7 @@
 """The port's noise kernel (and its device-seed entry), the conv epilogue's
 kernels, Restormer's attention (MDTA), LayerNorm and depthwise convolution
-kernels, pooled trainer
+kernels (the latter with Uformer's bias too), Uformer's shifted-window
+attention kernels, pooled trainer
 and per-step train step (and their CUDA graphs against the eager
 paths, one process and data-parallel in a world-1 NCCL group), eval
 forward (and its CUDA graph), ISP, serving
@@ -27,12 +28,13 @@ from eld_tpu_torch.config import Config
 from eld_tpu_torch.core import emor, isp
 from eld_tpu_torch.data.loader import pool_to_device
 from eld_tpu_torch.data.patchstore import PatchStore, PatchStoreWriter
-from eld_tpu_torch.models import build_arch, dwconv, epilogue, layernorm
+from eld_tpu_torch.models import build_arch, dwconv, epilogue, layernorm, wmsa
 from eld_tpu_torch.models import mdta as attention
 from eld_tpu_torch.models.dwconv import depthwise_conv3x3
 from eld_tpu_torch.models.epilogue import bias_lrelu
 from eld_tpu_torch.models.layernorm import biasfree_layernorm
 from eld_tpu_torch.models.mdta import mdta
+from eld_tpu_torch.models.wmsa import window_attention
 from eld_tpu_torch.noise.kernels import kernel_draws, seed_tensor, synthesize_kernel
 from eld_tpu_torch.noise.model import noise_core
 from eld_tpu_torch.noise.params import load_camera_params, sample_params_batch
@@ -404,8 +406,16 @@ def test_captured_pooled_restormer_calls_equal_the_eager_loop(cuda_device, tmp_p
     _captured_pooled_calls_equal_the_eager_loop(cuda_device, tmp_path, "restormer", 48)
 
 
-def _captured_pooled_calls_equal_the_eager_loop(cuda_device, tmp_path, arch, width):
-    recs = onp.random.default_rng(3).integers(0, 65535, (6, 64, 64, 4), dtype=onp.uint16)
+@pytest.mark.cuda
+def test_captured_pooled_uformer_calls_equal_the_eager_loop(cuda_device, tmp_path):
+    """The same for Uformer-B at its published widths (embed_dim 32, so the
+    window-attention kernels run inside the graph) on 128^2 patches, its
+    alignment: bit for bit, no kernel of its step having float atomics."""
+    _captured_pooled_calls_equal_the_eager_loop(cuda_device, tmp_path, "uformer", 32, 128)
+
+
+def _captured_pooled_calls_equal_the_eager_loop(cuda_device, tmp_path, arch, width, patch=64):
+    recs = onp.random.default_rng(3).integers(0, 65535, (6, patch, patch, 4), dtype=onp.uint16)
     pool = {"clean": torch.from_numpy(recs).to(cuda_device)}
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
@@ -1003,9 +1013,9 @@ def test_dwconv_kernels_equal_the_composition(cuda_device, shape):
     wr = conv.weight.detach().to(torch.bfloat16).float()
     lib = dwconv.LIBRARY.load()
     y = dwconv.launch_forward(lib, x, conv.weight)
-    gx, gw = dwconv.launch_backward(lib, gy, x, conv.weight)
+    gx, gw, _ = dwconv.launch_backward(lib, gy, x, conv.weight)
     y_ref = dwconv.plain_forward(x.float(), wr)
-    gx_ref, gw_ref = dwconv.plain_backward(gy.float(), x.float(), wr)
+    gx_ref, gw_ref, _ = dwconv.plain_backward(gy.float(), x.float(), wr)
     bound = 1e-5 * dwconv.plain_backward(gy.float().abs(), x.float().abs(), wr)[1]
     torch.cuda.synchronize(cuda_device)
     assert y.dtype == gx.dtype == torch.bfloat16 and gw.dtype == torch.float32
@@ -1032,8 +1042,8 @@ def test_dwconv_runs_are_bit_identical_run_to_run(cuda_device):
 @pytest.mark.cuda
 def test_dwconv_on_the_card_refuses_what_the_kernels_do_not_take(cuda_device):
     """bf16 at 254 channels runs the kernels (one launch counted each way); 255
-    channels, an f32 x, a stride of 2 or a bias is refused by name, and
-    nothing is launched or counted."""
+    channels, an f32 x, a stride of 2 or a dilation of 2 is refused by name,
+    and nothing is launched or counted."""
     before = depthwise_conv3x3.launches
     x, gy, conv = _dw_inputs(cuda_device, (2, 8, 8, 254))
     x.requires_grad_(True)
@@ -1047,8 +1057,8 @@ def test_dwconv_on_the_card_refuses_what_the_kernels_do_not_take(cuda_device):
         with pytest.raises(ValueError, match=what):
             depthwise_conv3x3(bad, c)
         with pytest.raises(ValueError, match=what):
-            dwconv._backward(gy[:, :bad.shape[1]].to(bad.dtype), bad, c.weight)
-    for kw, what in ((dict(stride=2), "stride"), (dict(bias=True), "bias")):
+            dwconv._backward(gy[:, :bad.shape[1]].to(bad.dtype), bad, c.weight, False)
+    for kw, what in ((dict(stride=2), "stride"), (dict(dilation=2), "dilation")):
         c = torch.nn.Conv2d(254, 254, 3, padding=1, groups=254, **kw).to(cuda_device)
         with pytest.raises(ValueError, match=what):
             depthwise_conv3x3(x.detach(), c)
@@ -1074,4 +1084,172 @@ def test_pooled_restormer_calls_launch_the_dwconv_176_times_a_step(cuda_device, 
         counts.append(depthwise_conv3x3.launches - before)
     torch.cuda.synchronize(cuda_device)
     assert counts == [1760] * 3 and graph_replays(fn) == 2
+    assert onp.isfinite(fn.losses.cpu().numpy()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 256, 256, 254), (4, 32, 32, 2042), (3, 37, 29, 254),
+                                   (32, 128, 128, 128), (32, 16, 16, 2048), (1, 5, 7, 2)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_dwconv_kernels_with_a_bias_equal_the_composition(cuda_device, shape):
+    """Uformer's LeFF conv has a bias: y against ``F.conv2d`` with the bias
+    (the weight and the bias rounded to bf16, as autocast rounds them), gx
+    and gw as without it, gb against the sum of gy in f64, within 1e-5 of
+    the sum of |gy| (f32 sums in a fixed order over up to 524,288 pixels; a
+    bf16 sum would miss by 1e-3 of it); the kernels without a bias give the
+    bits of the kernels with a zero bias, forward and backward, on
+    Restormer's shapes and Uformer's (the bias changes nothing else)."""
+    x, gy, conv = _dw_inputs(cuda_device, shape, 2)
+    c = shape[-1]
+    gen = torch.Generator(device=cuda_device).manual_seed(c)
+    bias = 2 * torch.rand((c,), generator=gen, device=cuda_device) - 1
+    wr = conv.weight.detach().to(torch.bfloat16).float()
+    lib = dwconv.LIBRARY.load()
+    y = dwconv.launch_forward(lib, x, conv.weight, bias)
+    gx, gw, gb = dwconv.launch_backward(lib, gy, x, conv.weight, True)
+    y_ref = dwconv.plain_forward(x.float(), wr, bias.to(torch.bfloat16).float())
+    gx_ref, gw_ref, _ = dwconv.plain_backward(gy.float(), x.float(), wr)
+    bound = 1e-5 * dwconv.plain_backward(gy.float().abs(), x.float().abs(), wr)[1]
+    eps = torch.finfo(torch.bfloat16).eps
+    torch.testing.assert_close(y.float(), y_ref, rtol=eps, atol=1e-5 * float(y_ref.abs().max()))
+    torch.testing.assert_close(gx.float(), gx_ref, rtol=eps,
+                               atol=1e-5 * float(gx_ref.abs().max()))
+    assert bool(((gw - gw_ref).abs() <= bound).all())
+    gb64 = gy.double().sum((0, 2, 3))
+    assert gb.shape == (c,) and bool(((gb - gb64).abs() <= 1e-5 * gy.double().abs().sum((0, 2, 3)))
+                                     .all())
+    assert torch.equal(dwconv.launch_forward(lib, x, conv.weight),
+                       dwconv.launch_forward(lib, x, conv.weight, torch.zeros_like(bias)))
+    plain, biased = (dwconv.launch_backward(lib, gy, x, conv.weight, wb)[:2]
+                     for wb in (False, True))
+    assert all(torch.equal(a, b) for a, b in zip(plain, biased))
+
+
+# ---- Uformer's shifted-window attention ------------------------------------------------
+
+# (n, h, w, heads): every layer's attention of the cell syn-pool.uformer.p128b32 (batch 32 of
+# 128^2 at embed_dim 32, 32 channels a head): the encoder's and the bottleneck's, then the
+# decoder's
+WMSA_SHAPES = [(32, 128, 128, 1), (32, 64, 64, 2), (32, 32, 32, 4), (32, 16, 16, 8),
+               (32, 8, 8, 16), (32, 16, 16, 16), (32, 32, 32, 8), (32, 64, 64, 4),
+               (32, 128, 128, 2)]
+
+# the largest relative errors (norm of the difference over the composition's norm) the kernels
+# may show.  Without a table: out, dq, dk, dv round P and dS to bf16 for the tensor cores as
+# autocast rounds them, and each output once, read 2.34e-3 to 2.39e-3 on the card (PERF.md);
+# the bias's gradient is an f32 sum of f32 dS (read 3.7e-7), the log-sum-exp f32's own (5.8e-8).
+# With the modulator's table the kernels round q + T, k + T and v + T to bf16 once more (the
+# composition adds T in f32), which moves every score and product by another 2^-9: read up to
+# 5.0e-3 (dq), 3.9e-3 (the bias's gradient), 4.7e-4 (the log-sum-exp).  A float8 product, a
+# bf16 sum over the 64 keys, or a term left out, reads 1e-2 or more.
+WMSA_REL = {"out": 5e-3, "dq": 5e-3, "dk": 5e-3, "dv": 5e-3, "dbias": 1e-5, "lse": 1e-6}
+WMSA_REL_MODULATED = {"out": 8e-3, "dq": 8e-3, "dk": 8e-3, "dv": 8e-3, "dbias": 8e-3,
+                      "dtable": 8e-3, "lse": 1e-3}
+
+
+def _wmsa_inputs(device, n, h, w, heads, modulated, seed=0):
+    gen = torch.Generator(device=device).manual_seed(n * h * w + heads + seed)
+    c = 32 * heads
+    qkv = torch.randn((n, h, w, 3 * c), generator=gen, device=device).to(torch.bfloat16)
+    bias = 0.5 * torch.randn((heads, 64, 64), generator=gen, device=device)
+    table = (torch.randn((64, 3 * c), generator=gen, device=device) if modulated else None)
+    dout = torch.randn((n, h, w, c), generator=gen, device=device).to(torch.bfloat16)
+    return qkv, bias, table, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("modulated", [False, True], ids=["plain", "modulated"])
+@pytest.mark.parametrize("shift", [0, 4], ids=["w", "sw"])
+@pytest.mark.parametrize("shape", WMSA_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_wmsa_kernels_equal_the_composition(cuda_device, shape, shift, modulated):
+    """The forward and backward runs against the composition in f32 on the
+    same bf16 inputs (``plain_forward``, ``plain_backward``, which the CPU
+    tests hold to autograd and to the authors' roll and partition): the
+    log-sum-exp to f32's rounding, out, dq, dk, dv, the bias's and the
+    table's gradients within WMSA_REL of the composition's norm."""
+    n, h, w, heads = shape
+    c = 32 * heads
+    qkv, bias, table, dout = _wmsa_inputs(cuda_device, n, h, w, heads, modulated)
+    lib = wmsa.LIBRARY.load()
+    out, lse = wmsa.launch_forward(lib, qkv, bias, table, heads, shift)
+    dqkv, dbias, dtable = wmsa.launch_backward(lib, dout, qkv, bias, table, lse, heads, shift)
+    ref, lse_ref = wmsa.plain_forward(qkv.float(), bias, table, heads, shift)
+    dref, dbias_ref, dtable_ref = wmsa.plain_backward(dout.float(), qkv.float(), bias, table,
+                                                      lse_ref, heads, shift)
+    torch.cuda.synchronize(cuda_device)
+    assert out.dtype == dqkv.dtype == torch.bfloat16 and dbias.shape == bias.shape
+    rel = {"lse": _rel(lse, lse_ref), "out": _rel(out, ref), "dbias": _rel(dbias, dbias_ref)}
+    for name, sl in (("dq", slice(0, c)), ("dk", slice(c, 2 * c)), ("dv", slice(2 * c, 3 * c))):
+        rel[name] = _rel(dqkv[..., sl], dref[..., sl])
+    if modulated:
+        rel["dtable"] = _rel(dtable, dtable_ref)
+    else:
+        assert dtable.numel() == 0
+    limits = WMSA_REL_MODULATED if modulated else WMSA_REL
+    print(shape, shift, modulated, rel)
+    assert all(v <= limits[k] for k, v in rel.items()), rel
+
+
+@pytest.mark.cuda
+def test_wmsa_runs_are_bit_identical_run_to_run(cuda_device):
+    """No float atomics: two runs each way on the same inputs give the same
+    bits, every output."""
+    for shape, shift, modulated in [((32, 128, 128, 1), 0, False), ((32, 64, 64, 4), 4, True),
+                                    ((32, 8, 8, 16), 0, False), ((32, 16, 16, 16), 4, True)]:
+        qkv, bias, table, dout = _wmsa_inputs(cuda_device, *shape, modulated, 1)
+        lib = wmsa.LIBRARY.load()
+        runs = []
+        for _ in range(2):
+            fwd = wmsa.launch_forward(lib, qkv, bias, table, shape[3], shift)
+            runs.append(fwd + wmsa.launch_backward(lib, dout, qkv, bias, table, fwd[1], shape[3],
+                                                   shift))
+        assert all(torch.equal(x, y) for x, y in zip(*runs)), shape
+
+
+@pytest.mark.cuda
+def test_wmsa_on_the_card_refuses_what_the_kernels_do_not_take(cuda_device):
+    """bf16 at head size 32, window 8, shift 0 or 4 runs the kernels (one
+    launch counted each way); f32, another head size, another window or
+    shift, or a frame that is no multiple of 8 is refused by name, forward
+    and backward, and nothing is counted."""
+    before = window_attention.launches
+    qkv, bias, table, dout = _wmsa_inputs(cuda_device, 2, 16, 16, 2, True)
+    x = qkv.clone().requires_grad_(True)
+    window_attention(x, bias, table, 2, 4).backward(dout)
+    assert window_attention.launches == before + 2
+    cases = [(qkv.float(), bias, 2, 0, "torch.float32"),
+             (qkv, bias.repeat(2, 1, 1), 4, 0, "16 channels a head"),
+             (qkv, bias[:, :16, :16].contiguous(), 2, 0, "windows of 4"),
+             (qkv, bias, 2, 2, "shift 2"),
+             (qkv[:, :12, :12], bias, 2, 0, "12 x 12")]
+    for t, b, heads, shift, what in cases:
+        with pytest.raises(ValueError, match=what if what != "12 x 12" else "dividing 12 x 12"):
+            window_attention(t, b, None, heads, shift)
+        with pytest.raises(ValueError, match=what):
+            wmsa._backward(dout[:, :t.shape[1], :t.shape[2], :t.shape[-1] // 3].to(t.dtype), t, b,
+                           None, torch.zeros((1,), device=cuda_device), heads, shift)
+    assert window_attention.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_pooled_uformer_calls_launch_the_window_attention_80_times_a_step(cuda_device, tmp_path):
+    """The benchmark's configuration (embed_dim 32, bf16) in the Engine's
+    pooled trainer at K = 10, batch 2 of 128^2: the eager call, the
+    capture's replay and a replay each count 800 launches of the window
+    attention, 40 forward and 40 backward a step, and 800 of the depthwise
+    convs."""
+    recs = onp.random.default_rng(5).integers(0, 65535, (4, 128, 128, 4), dtype=onp.uint16)
+    pool = {"clean": torch.from_numpy(recs).to(cuda_device)}
+    eng = Engine(Config(device="cuda", netG="uformer", noise="eld", include=4, base_width=32,
+                        batch_size=2, bf16=True, is_train=True, no_log=True, no_verbose=True,
+                        checkpoints_dir=str(tmp_path), name="uformer"))
+    fn = eng._scan_fn(10)
+    counts = []
+    for call in range(3):
+        before = (window_attention.launches, depthwise_conv3x3.launches)
+        fn(eng.state, pool, [fold_in(1, 10 * call + j) for j in range(10)])
+        counts.append((window_attention.launches - before[0],
+                       depthwise_conv3x3.launches - before[1]))
+    torch.cuda.synchronize(cuda_device)
+    assert counts == [(800, 800)] * 3 and graph_replays(fn) == 2
     assert onp.isfinite(fn.losses.cpu().numpy()).all()

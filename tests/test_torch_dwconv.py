@@ -77,7 +77,7 @@ def test_the_plain_version_equals_autograd_through_conv2d(c, hw):
     y_ref = F.conv2d(xa, conv.weight, padding=1, groups=c)
     y_ref.backward(gy)
     y = dwconv.plain_forward(x, conv.weight)
-    gx, gw = dwconv.plain_backward(gy, x, conv.weight)
+    gx, gw, _ = dwconv.plain_backward(gy, x, conv.weight)
     assert torch.equal(y, y_ref.detach())
     assert y.is_contiguous(memory_format=torch.channels_last)
     assert gx.is_contiguous(memory_format=torch.channels_last)
@@ -121,8 +121,9 @@ def test_bf16_rounds_the_weight_as_autocast_did_for_cudnn():
 @pytest.mark.parametrize("case", ["kernel 5x5", "padding 0", "stride 2", "dilation 2",
                                   "groups 1", "a bias", "x not 4-D", "weight elsewhere"])
 def test_a_convolution_that_is_not_this_function_is_refused(case):
-    """On any device, a conv other than the 3x3 depthwise one of padding 1,
-    stride 1 and no bias, over x's channels, is refused by name."""
+    """On any device, a conv other than the 3x3 depthwise one of padding 1 and
+    stride 1 over x's channels, or one whose bias (which the kernels take)
+    lies on another device than x, is refused by name."""
     kw, x = {}, _inputs(8, (6, 8), 5)[0]
     if case == "kernel 5x5":
         kw = dict(kernel_size=5, padding=2)
@@ -141,6 +142,8 @@ def test_a_convolution_that_is_not_this_function_is_refused(case):
         x = x[0]
     elif case == "weight elsewhere":
         conv = conv.to("meta")
+    elif case == "a bias":
+        conv.bias = nn.Parameter(conv.bias.detach().to("meta"))
     with pytest.raises(ValueError):
         depthwise_conv3x3(x, conv)
 
@@ -205,7 +208,7 @@ def test_a_traced_backward_records_the_backward_operator():
     x = _inputs(6, (5, 7), 9)[0].requires_grad_(True)
 
     def grads(x, w):
-        y = dwconv._forward(x, w)
+        y = dwconv._forward(x, w, None)
         return torch.autograd.grad(y.sum(), (x, w))
 
     graph = make_fx(grads)(x, conv.weight)

@@ -166,9 +166,9 @@ def test_converter_equals_eld_tpu_conversions():
 
 def test_registry_and_alignment():
     assert isinstance(build_arch("unet", 4, 4, base_width=4), UNetSeeInDark)
-    # the port's registry is eld_tpu's and the port's own Restormer
+    # the port's registry is eld_tpu's and the port's own Restormer and Uformer
     assert jax_arch_names() == ["unet", "unet_s2d", "unet_s2d4"]
-    assert arch_names() == sorted(jax_arch_names() + ["restormer"])
+    assert arch_names() == sorted(jax_arch_names() + ["restormer", "uformer"])
     assert build_arch("unet_s2d", 4, 4, base_width=4).alignment() == 32
     # eld_tpu's block-4 model also reports 32; its decoder needs 64
     assert build_arch("unet_s2d4", 4, 4, base_width=4).alignment() == 64
